@@ -9,8 +9,12 @@ and never ``jax``.
 Ported (module for module):
   ops/gather.py, ops/fetch.py  — hand-written CUDA kernels (csrc/*.cu for
                                  sm_90a, built at first use by ops/_build.py)
-                                 with their plain PyTorch versions
-  ops/beamsearch.py            — the v3 search engine (closure ε mode)
+                                 with their plain PyTorch versions; the
+                                 fetch kernel also serves the row gather of
+                                 tools/perf (ops/fetch.py:row_gather)
+  ops/beamsearch.py            — both search engines: v3 (relax_impl=topk)
+                                 and v2 (relax_impl=sort) in closure and
+                                 sweeps ε mode, with the JAX auto rules
   models/layers.py, nnet.py    — all 13 layer kinds, the Nnet binary format,
                                  am_forward; models/flagship.py: make_flagship
   frontend/fbank.py            — fbank, streaming fbank, live/utterance CMVN
@@ -18,16 +22,20 @@ Ported (module for module):
   serving/session.py, batcher.py, server.py — the streaming serve path
                                  (hclg graphs, one device)
   cli/_model.py, serve.py, decode.py
+  utils/profiling.py           — torch.profiler ranges and Chrome traces
+  tools/perf/*.py              — the search microbenches and operating-point
+                                 tools (bench_row_gather, bench_dma_variants,
+                                 bench_points, profile_production)
 
 Shared from ``asr_decoder_tpu`` (host-only numpy, no jax): ``fst/*``,
 ``decoder/config.py``, ``decoder/gold.py``, ``decoder/raw_lattice.py``,
 ``serving/protocol.py``, ``serving/client.py``, ``frontend/audio.py``,
-``align/*``, ``models/transition.py``, ``utils/config.py``,
-``utils/logging.py``, ``utils/wer.py``.
+``align/*``, ``eval/synth_task.py``, ``models/transition.py``,
+``utils/config.py``, ``utils/logging.py``, ``utils/wer.py``.
 
 Not ported yet (raise ``NotImplementedError`` where a config reaches them):
-the v2 sort engine and sweeps ε mode, CLG and BigLM graphs, pitch, VAD
-(and so endpointing), CTC training, multi-device.
+CLG and BigLM graphs, pitch, VAD (and so endpointing); nor CTC training,
+multi-device, ``bench.py`` and ``eval.py``.
 """
 
 __version__ = "0.1.0"

@@ -1,13 +1,20 @@
-"""Batched frame-synchronous WFST Viterbi beam search (v3 engine) in PyTorch.
+"""Batched frame-synchronous WFST Viterbi beam search in PyTorch.
 
-Port of the v3 engine of ``asr_decoder_tpu/ops/beamsearch.py``
-(``relax_impl=topk``, closure ε mode) — the reference decoder's
+Port of ``asr_decoder_tpu/ops/beamsearch.py`` — the reference decoder's
 ``ProcessEmitting`` / ``ProcessNonemitting`` / ``GetCutoff`` /
 ``FindOrAddToken`` (ref: src/my-decoder/online-decoder-base-inl.h:89-437)
-as a dense ``[B, K]`` token beam per utterance.  Each frame is one
-live-adaptive record fetch (``ops/fetch.py``), a flat ``[B, K·A]``
-candidate field, a top-k-first relax (``_relax_topk``), then one more fetch
-and relax over the precomputed ε-closure entries.
+as a dense ``[B, K]`` token beam per utterance.  Both engines of the JAX
+package are here, chosen by the same ``auto`` rules:
+
+  * **v3** (``relax_impl=topk``, closure ε mode): each frame is one
+    live-adaptive record fetch (``ops/fetch.py``), a flat ``[B, K·A]``
+    candidate field, a top-k-first relax (``_relax_topk``), then one more
+    fetch and relax over the precomputed ε-closure entries.
+  * **v2** (``relax_impl=sort``): the beam states' padded arc-record rows
+    are read by plain indexing, every candidate goes through a full-width
+    sort by destination (``_relax_and_prune``), and ε is one closure stage
+    (closure mode) or E bounded relaxation sweeps over the ε arcs (sweeps
+    mode, E = the graph's ε depth).
 
 The search is plain functions on tensors; every function takes its
 tensors on one device and runs there.  The hand-written kernels are the
@@ -20,12 +27,9 @@ engine bit for bit:
   * ``lax.top_k(-cost, k)`` ranks by IEEE total order (-0.0 before +0.0)
     and breaks ties by the lowest index — here a stable ascending sort of
     an int32 key that orders like the float's total order;
-  * the 3-key ``lax.sort((dst, cost, fi))`` compares costs with -0.0 equal
-    to +0.0 — here a sort of an int64 (cost, fi) key followed by a stable
-    sort by dst.
-
-The v2 sort engine and sweeps ε mode are not ported yet (ROADMAP §1, "the
-v2 sort engine and sweeps mode"); a config that needs them raises.
+  * the multi-key ``lax.sort((dst, *extra, cost, idx))`` compares costs
+    with -0.0 equal to +0.0 — here a sort of an int64 (cost, idx) key
+    followed by one stable sort per identity key, last key first.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from asr_decoder_tpu.decoder.config import DecoderConfig
 from asr_decoder_tpu.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.ops.fetch import fetch_records
 from asr_decoder_tpu_torch.ops.gather import batched_table_gather
+from asr_decoder_tpu_torch.utils.profiling import scope
 
 INF = float("inf")
 NO_STATE = -1
@@ -46,12 +51,27 @@ BIG_STATE = 2**31 - 1   # sort key for dead candidates
 ARC_STAY = -2           # log sentinel: token carried, no arc taken
 CLO_BIT = 1 << 30       # dst marker: destination state has ε-closure entries
 
-_NOT_PORTED = ("not ported to asr_decoder_tpu_torch yet (ROADMAP §1: the "
-               "v2 sort engine and sweeps mode)")
+
+class GraphArrays(NamedTuple):
+    """v2 device graph: padded per-state record tables, field-major (field
+    f at lanes [f·L, (f+1)·L)), padding lanes dst = -1, weights as f32 bits.
+
+      * ``em_rec  i32[S, 4·A]`` — emitting arcs: (dst | pdf | weight |
+        em-block arc index);
+      * ``eps_rec i32[S, 3·Ae]`` — ε arcs (sweeps mode): (dst | weight |
+        ε-block arc index);
+      * ``clo_rec i32[S, 3·C]`` — ε-closure entries (closure mode):
+        (dst | weight | closure-entry index).
+    """
+    em_rec: torch.Tensor   # i32[S, 4*A]
+    eps_rec: torch.Tensor  # i32[S, 3*Ae]  (zero-width in closure mode)
+    clo_rec: torch.Tensor  # i32[S, 3*C]   (zero-width in sweeps mode)
+    start: int
+    final_state: int
 
 
 class PackedGraph(NamedTuple):
-    """Device state-record table: row s is state s's record, field-major
+    """v3 device state-record table: row s is state s's record, field-major
     ``[em_dst·A | em_pdf·A | em_w·A | clo_dst·C | clo_w·C]`` (dst padding
     -1, weights as f32 bits) padded to ``lanes`` i32 words."""
     records: torch.Tensor  # i32[S, lanes]
@@ -66,9 +86,12 @@ class BeamState(NamedTuple):
 
 class FrameLog(NamedTuple):
     """Per-frame search log (same fields as the JAX ``FrameLog``):
-    ``prev_slot``/``arc_id`` per relax stage (stage 0 = emit, stage 1 =
-    closure; ``arc_id`` is the flat candidate index or ``ARC_STAY``) and the
-    post-frame token snapshots the host traceback and lattice need."""
+    ``prev_slot``/``arc_id`` per relax stage (stage 0 = emit, later stages
+    ε) and the post-frame token snapshots the lattice needs.  ``arc_id`` is
+    ``ARC_STAY`` for a carried token, else — v3: the flat candidate index;
+    v2: a block index (emitting block at stage 0, then closure entries or
+    ε-block arcs).  With ``log_snapshots`` off the frame snapshots are
+    zero-width."""
     prev_slot: torch.Tensor   # i32[stages,B,K]    (advance: [T,stages,B,K])
     arc_id: torch.Tensor      # i32[stages,B,K]    (advance: [T,stages,B,K])
     tok_state: torch.Tensor   # i32[B,K]           (advance: [T,B,K])
@@ -85,6 +108,44 @@ def _pad_block(offset: np.ndarray, count: np.ndarray, lanes: int,
         vals = vals.view(np.int32)
     out = np.where(mask, vals.astype(np.int32)[idx], fill)
     return out.astype(np.int32)
+
+
+def _pack_records(offset: np.ndarray, count: np.ndarray, lanes: int,
+                  *fields: np.ndarray) -> np.ndarray:
+    """CSR → padded field-major record table i32[S, len(fields)·lanes]; the
+    first field is dst (padding -1), the others pad with 0."""
+    return np.concatenate(
+        [_pad_block(offset, count, lanes, f, -1 if i == 0 else 0)
+         for i, f in enumerate(fields)], axis=1)
+
+
+def make_graph_arrays(dev: DeviceFst, ilabel2pdf: np.ndarray, mode: str,
+                      device: torch.device | str) -> GraphArrays:
+    """The v2 record tables on ``device``; ``ilabel2pdf[i]`` maps arc input
+    label i to the AM output row scored for it."""
+    ilabel2pdf = np.asarray(ilabel2pdf, np.int32)
+    S = dev.num_states
+    empty = np.zeros((S, 0), np.int32)
+    A = max(dev.max_em_degree, 1)
+    em_rec = _pack_records(dev.em_offset, dev.em_count, A, dev.em_dst,
+                           ilabel2pdf[dev.em_ilabel], dev.em_weight,
+                           np.arange(len(dev.em_dst), dtype=np.int32))
+    eps_rec = clo_rec = empty
+    if mode == "closure":
+        assert dev.clo_offset is not None, "call dev.build_closure() first"
+        C = dev.max_closure_size
+        if C:
+            clo_rec = _pack_records(
+                dev.clo_offset, dev.clo_count, C, dev.clo_dst,
+                dev.clo_weight, np.arange(len(dev.clo_dst), dtype=np.int32))
+    elif len(dev.eps_dst):
+        eps_rec = _pack_records(
+            dev.eps_offset, dev.eps_count, max(dev.max_eps_degree, 1),
+            dev.eps_dst, dev.eps_weight,
+            np.arange(len(dev.eps_dst), dtype=np.int32))
+    return GraphArrays(*(torch.from_numpy(r).to(device)
+                         for r in (em_rec, eps_rec, clo_rec)),
+                       start=int(dev.start), final_state=int(dev.final_state))
 
 
 def packed_lanes(A: int, C: int) -> int:
@@ -154,16 +215,19 @@ def _smallest(cost: torch.Tensor, k: int):
             idx[:, :k].to(torch.int32))
 
 
-def _sort3(dst, cost, fi):
-    """``lax.sort((dst, cost, fi), num_keys=3)`` on rows; fi is distinct
-    within a row."""
+def _lexsort(ids, cost, idx):
+    """``lax.sort((*ids, cost, idx), num_keys=len(ids) + 2)`` on rows: the
+    i32 identity keys ``ids`` first (``ids[0]`` most significant), then
+    ``cost`` with -0.0 equal to +0.0, then ``idx``, which is distinct
+    within a row (so the order is total).  Returns the sorted
+    ``(*ids, cost, idx)``."""
     canon = torch.where(cost == 0, torch.zeros_like(cost), cost)  # -0 ≡ +0
-    low = _total_key(canon).long() * 2**32 + fi.long()
+    low = _total_key(canon).long() * 2**32 + idx.long()
     _, order = torch.sort(low, dim=1)
-    _, by_dst = torch.sort(torch.gather(dst, 1, order), dim=1, stable=True)
-    order = torch.gather(order, 1, by_dst)
-    return (torch.gather(dst, 1, order), torch.gather(cost, 1, order),
-            torch.gather(fi, 1, order))
+    for key in reversed(ids):
+        _, by = torch.sort(torch.gather(key, 1, order), dim=1, stable=True)
+        order = torch.gather(order, 1, by)
+    return tuple(torch.gather(t, 1, order) for t in (*ids, cost, idx))
 
 
 def _lane_iota(n: int, device) -> torch.Tensor:
@@ -171,7 +235,148 @@ def _lane_iota(n: int, device) -> torch.Tensor:
 
 
 # ----------------------------------------------------------------------
-# v3 stages
+# v2 (relax_impl=sort) stages
+# ----------------------------------------------------------------------
+
+def _relax_and_prune(dst, cost, *, K, beam, min_active, extra_keys=()):
+    """Min-merge flat candidates by destination, then prune (the v2
+    ``FindOrAddToken`` + ``GetCutoff``, ref online-decoder-base-inl.h:
+    89-245): a lexicographic sort by (dst, *extra_keys, cost, candidate
+    index); the first candidate of each segment is that destination's best
+    (ties by lowest candidate index — the reference's first-writer-wins);
+    then the best K by cost, with an adaptive beam that never drops the
+    best ``min_active`` — counted after the dedup, unlike v3.
+
+    ``extra_keys``: further i32[B,N] identity lanes (e.g. LM states of a
+    pair search) that join dst in the merge key; their pruned [B,K]
+    values are returned after the keep mask.
+
+    Returns (state i32[B,K], cost f32[B,K], win i32[B,K] flat candidate
+    index, keep bool[B,K], *extras).
+    """
+    B, N = dst.shape
+    dev = dst.device
+    sort_dst = torch.where(torch.isfinite(cost), dst, BIG_STATE)
+    idx = _lane_iota(N, dev).expand(B, N)
+    *ids_s, cost_s, idx_s = _lexsort((sort_dst, *extra_keys), cost, idx)
+    sort_dst, extras_s = ids_s[0], ids_s[1:]
+    same = sort_dst[:, 1:] == sort_dst[:, :-1]
+    for e in extras_s:
+        same = same & (e[:, 1:] == e[:, :-1])
+    first = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                       ~same], dim=1)
+    cost_s = torch.where(first & (sort_dst != BIG_STATE), cost_s, INF)
+    cost_k, tk = _smallest(cost_s, K)
+    state_k = batched_table_gather(sort_dst, tk)
+    win = batched_table_gather(idx_s, tk)
+    # adaptive beam: always keep the best min_active slots
+    keep = torch.isfinite(cost_k) & ((cost_k <= cost_k[:, :1] + beam)
+                                     | (_lane_iota(K, dev) < min_active))
+    extras_k = tuple(torch.where(keep, batched_table_gather(e, tk), 0)
+                     for e in extras_s)
+    return (torch.where(keep, state_k, NO_STATE),
+            torch.where(keep, cost_k, INF),
+            torch.where(keep, win, 0), keep, *extras_k)
+
+
+def _rows(rec, state, fields: int):
+    """Each token's padded record row, split into ``fields`` flat [B, K·L]
+    lane blocks; dead slots read row 0 (masked by the caller)."""
+    B, K = state.shape
+    L = rec.shape[1] // fields
+    rows = rec[torch.where(state != NO_STATE, state, 0)]     # [B,K,F*L]
+    return [rows[:, :, f * L:(f + 1) * L].reshape(B, K * L)
+            for f in range(fields)]
+
+
+def _emit_stage(g: GraphArrays, state, cost, ll, *, cfg):
+    """ProcessEmitting (ref inl.h:247-352): each beam state's emitting-arc
+    row, flat ``[B, K·A]`` candidates scored against ``ll`` f32[B,V],
+    relax, prune.  Returns (state, cost, prev slot, emitting-block arc id
+    or ARC_STAY)."""
+    with scope("search/emit"):
+        A = cfg["A"]
+        dstN, pdf, wbits, aidN = _rows(g.em_rec, state, 4)
+        valid = (state != NO_STATE).repeat_interleave(A, dim=1)
+        amask = valid & (dstN >= 0)
+        am = batched_table_gather(ll, torch.where(amask, pdf, 0))
+        candN = torch.where(amask,
+                            cost.repeat_interleave(A, dim=1)
+                            + wbits.view(torch.float32)
+                            - cfg["acoustic_scale"] * am, INF)
+        state, cost, win, keep = _relax_and_prune(
+            torch.where(amask, dstN, 0), candN, K=cfg["K"], beam=cfg["beam"],
+            min_active=cfg["min_active"])
+        prev = torch.where(keep, win // A, 0)
+        aid = torch.where(keep, batched_table_gather(aidN, win), ARC_STAY)
+        return state, cost, prev, aid
+
+
+def _table_stage(rec, state, cost, *, K, beam, min_active):
+    """One ε relaxation stage over a record table i32[S, 3·L] (closure
+    entries or ε arcs): L table candidates per token plus a trailing stay
+    candidate per token.  Returns (state, cost, prev, table entry index or
+    ARC_STAY)."""
+    B = state.shape[0]
+    L = rec.shape[1] // 3
+    if L == 0:
+        # zero-lane table (eps_iters forced > 0 on an ε-free graph): every
+        # token stays put
+        return (state, cost, _lane_iota(K, state.device).expand(B, K),
+                torch.full((B, K), ARC_STAY, dtype=torch.int32,
+                           device=state.device))
+    N = K * L
+    d, wbits, eidxN = _rows(rec, state, 3)
+    valid = state != NO_STATE
+    emask = valid.repeat_interleave(L, dim=1) & (d >= 0)
+    candN = torch.where(emask, cost.repeat_interleave(L, dim=1)
+                        + wbits.view(torch.float32), INF)
+    dst_all = torch.cat([torch.where(emask, d, 0),
+                         torch.where(valid, state, 0)], dim=1)
+    cand_all = torch.cat([candN, torch.where(valid, cost, INF)], dim=1)
+    state, cost, win, keep = _relax_and_prune(
+        dst_all, cand_all, K=K, beam=beam, min_active=min_active)
+    is_stay = win >= N
+    prev = torch.where(keep, torch.where(is_stay, win - N, win // L), 0)
+    aid = torch.where(keep & ~is_stay,
+                      batched_table_gather(eidxN, torch.clamp(win, max=N - 1)),
+                      ARC_STAY)
+    return state, cost, prev, aid
+
+
+def _eps_stages(g: GraphArrays, state, cost, *, cfg):
+    """All ε stages of one frame: one closure relaxation (closure mode) or
+    E bounded sweeps (sweeps mode).  Returns (state, cost, (prev, aid)),
+    logs [S_eps,B,K]."""
+    B, K = state.shape
+    kw = dict(K=K, beam=cfg["beam"], min_active=cfg["min_active"])
+    if cfg["mode"] == "closure":
+        tables = [g.clo_rec] if cfg["C"] > 0 else []
+    else:
+        tables = [g.eps_rec] * cfg["E"]
+    prevs, aids = [], []
+    for rec in tables:
+        state, cost, prev, aid = _table_stage(rec, state, cost, **kw)
+        prevs.append(prev)
+        aids.append(aid)
+    if not prevs:
+        empty = torch.zeros((0, B, K), dtype=torch.int32, device=state.device)
+        return state, cost, (empty, empty)
+    return state, cost, (torch.stack(prevs), torch.stack(aids))
+
+
+def _frame_step(g: GraphArrays, state, cost, ll, *, cfg):
+    """One v2 frame: the emitting stage, then the ε stage(s); logs [S,B,K]
+    (stage 0 = emitting, referencing previous-frame slots)."""
+    state, cost, prev0, aid0 = _emit_stage(g, state, cost, ll, cfg=cfg)
+    with scope("search/eps"):
+        state, cost, (eprev, eaid) = _eps_stages(g, state, cost, cfg=cfg)
+    return (state, cost, torch.cat([prev0[None], eprev]),
+            torch.cat([aid0[None], eaid]))
+
+
+# ----------------------------------------------------------------------
+# v3 (relax_impl=topk) stages
 # ----------------------------------------------------------------------
 
 def _relax_topk(dst, cost, *, K, beam, min_active, F, clo_first=False):
@@ -204,7 +409,7 @@ def _relax_topk(dst, cost, *, K, beam, min_active, F, clo_first=False):
     cost_k = torch.where(keep, cost_k, INF)
     dst_k = torch.where(keep, dst_k, BIG_STATE)
     # dedup by destination: first of each dst segment wins
-    d_s, c_s, fi_s = _sort3(dst_k, cost_k, fi)
+    d_s, c_s, fi_s = _lexsort((dst_k,), cost_k, fi)
     first = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
                        d_s[:, 1:] != d_s[:, :-1]], dim=1)
     c_s = torch.where(first & (d_s != BIG_STATE), c_s, INF)
@@ -235,67 +440,71 @@ def _relax_topk(dst, cost, *, K, beam, min_active, F, clo_first=False):
     return state2, cost2, fi2, alive, live
 
 
-def _emit_stage(pg: PackedGraph, state, cost, ll, *, cfg):
+def _emit_stage_v3(pg: PackedGraph, state, cost, ll, *, cfg):
     """ProcessEmitting: one live-adaptive fetch of each active state's
     record, flat [B, K·A] candidates scored against ``ll`` f32[B,V], relax."""
-    K, A = cfg["K"], cfg["A"]
-    B = state.shape[0]
-    N = K * A
-    valid = state != NO_STATE
-    rows = fetch_records(pg.records, state,
-                         valid.sum(dim=1, dtype=torch.int32))
-    dstN = rows[:, :, 0:A].reshape(B, N)
-    pdfN = rows[:, :, A:2 * A].reshape(B, N)
-    wN = rows[:, :, 2 * A:3 * A].reshape(B, N).view(torch.float32)
-    # dead slots' rows were never fetched: mask by the slot, not the row
-    amask = valid.repeat_interleave(A, dim=1) & (dstN >= 0)
-    am = batched_table_gather(ll, torch.where(amask, pdfN, 0))
-    candN = torch.where(amask,
-                        cost.repeat_interleave(A, dim=1) + wN
-                        - cfg["acoustic_scale"] * am, INF)
-    dstN = torch.where(amask, dstN, BIG_STATE)
-    state2, cost2, fi, alive, _ = _relax_topk(
-        dstN, candN, K=K, beam=cfg["beam"], min_active=cfg["min_active"],
-        F=cfg["F"], clo_first=cfg["C"] > 0)
-    prev = torch.where(alive, fi // A, 0)
-    aid = torch.where(alive, fi, ARC_STAY)
-    return state2, cost2, prev, aid
+    with scope("search/emit3"):
+        K, A = cfg["K"], cfg["A"]
+        B = state.shape[0]
+        N = K * A
+        valid = state != NO_STATE
+        rows = fetch_records(pg.records, state,
+                             valid.sum(dim=1, dtype=torch.int32))
+        dstN = rows[:, :, 0:A].reshape(B, N)
+        pdfN = rows[:, :, A:2 * A].reshape(B, N)
+        wN = rows[:, :, 2 * A:3 * A].reshape(B, N).view(torch.float32)
+        # dead slots' rows were never fetched: mask by the slot, not the row
+        amask = valid.repeat_interleave(A, dim=1) & (dstN >= 0)
+        am = batched_table_gather(ll, torch.where(amask, pdfN, 0))
+        candN = torch.where(amask,
+                            cost.repeat_interleave(A, dim=1) + wN
+                            - cfg["acoustic_scale"] * am, INF)
+        dstN = torch.where(amask, dstN, BIG_STATE)
+        state2, cost2, fi, alive, _ = _relax_topk(
+            dstN, candN, K=K, beam=cfg["beam"],
+            min_active=cfg["min_active"], F=cfg["F"], clo_first=cfg["C"] > 0)
+        prev = torch.where(alive, fi // A, 0)
+        aid = torch.where(alive, fi, ARC_STAY)
+        return state2, cost2, prev, aid
 
 
-def _clo_stage(pg: PackedGraph, state, cost, *, cfg):
+def _clo_stage_v3(pg: PackedGraph, state, cost, *, cfg):
     """ProcessNonemitting: fetch the records of the tokens whose state
     carries the CLO_BIT (the emit relax put them at the beam front, so the
     fetch's live count is just those), relax their ε-closure entries plus a
     stay candidate for every live token."""
-    K, A, C = cfg["K"], cfg["A"], cfg["C"]
-    B = state.shape[0]
-    N = K * C
-    valid = state != NO_STATE
-    has_clo = valid & (((state >> 30) & 1) != 0)
-    clean = torch.where(valid, state & ~CLO_BIT, state)
-    rows = fetch_records(pg.records, clean,
-                         has_clo.sum(dim=1, dtype=torch.int32))
-    dstN = rows[:, :, 3 * A:3 * A + C].reshape(B, N)
-    wN = rows[:, :, 3 * A + C:3 * A + 2 * C].reshape(B, N).view(torch.float32)
-    # bit-free tokens' rows were never fetched: mask by the marker
-    emask = has_clo.repeat_interleave(C, dim=1) & (dstN >= 0)
-    candN = torch.where(emask, cost.repeat_interleave(C, dim=1) + wN, INF)
-    dstN = torch.where(emask, dstN, BIG_STATE)
-    dst_all = torch.cat([dstN, torch.where(valid, clean, BIG_STATE)], dim=1)
-    cand_all = torch.cat([candN, torch.where(valid, cost, INF)], dim=1)
-    state2, cost2, fi, alive, _ = _relax_topk(
-        dst_all, cand_all, K=K, beam=cfg["beam"],
-        min_active=cfg["min_active"], F=cfg["F"])
-    is_stay = fi >= N
-    prev = torch.where(alive, torch.where(is_stay, fi - N, fi // C), 0)
-    aid = torch.where(alive & ~is_stay, fi, ARC_STAY)
-    return state2, cost2, prev, aid
+    with scope("search/eps3"):
+        K, A, C = cfg["K"], cfg["A"], cfg["C"]
+        B = state.shape[0]
+        N = K * C
+        valid = state != NO_STATE
+        has_clo = valid & (((state >> 30) & 1) != 0)
+        clean = torch.where(valid, state & ~CLO_BIT, state)
+        rows = fetch_records(pg.records, clean,
+                             has_clo.sum(dim=1, dtype=torch.int32))
+        dstN = rows[:, :, 3 * A:3 * A + C].reshape(B, N)
+        wN = rows[:, :, 3 * A + C:3 * A + 2 * C].reshape(B, N).view(
+            torch.float32)
+        # bit-free tokens' rows were never fetched: mask by the marker
+        emask = has_clo.repeat_interleave(C, dim=1) & (dstN >= 0)
+        candN = torch.where(emask, cost.repeat_interleave(C, dim=1) + wN, INF)
+        dstN = torch.where(emask, dstN, BIG_STATE)
+        dst_all = torch.cat([dstN, torch.where(valid, clean, BIG_STATE)],
+                            dim=1)
+        cand_all = torch.cat([candN, torch.where(valid, cost, INF)], dim=1)
+        state2, cost2, fi, alive, _ = _relax_topk(
+            dst_all, cand_all, K=K, beam=cfg["beam"],
+            min_active=cfg["min_active"], F=cfg["F"])
+        is_stay = fi >= N
+        prev = torch.where(alive, torch.where(is_stay, fi - N, fi // C), 0)
+        aid = torch.where(alive & ~is_stay, fi, ARC_STAY)
+        return state2, cost2, prev, aid
 
 
-def _frame_step(pg: PackedGraph, state, cost, ll, *, cfg):
-    state, cost, prev0, aid0 = _emit_stage(pg, state, cost, ll, cfg=cfg)
+def _frame_step_v3(pg: PackedGraph, state, cost, ll, *, cfg):
+    state, cost, prev0, aid0 = _emit_stage_v3(pg, state, cost, ll, cfg=cfg)
     if cfg["C"] > 0:
-        state, cost, prev1, aid1 = _clo_stage(pg, state, cost, cfg=cfg)
+        state, cost, prev1, aid1 = _clo_stage_v3(pg, state, cost, cfg=cfg)
         return state, cost, torch.stack([prev0, prev1]), \
             torch.stack([aid0, aid1])
     return state, cost, prev0[None], aid0[None]
@@ -305,6 +514,44 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _select_engine(dev: DeviceFst, cfg: DecoderConfig
+                   ) -> tuple[str, int, str]:
+    """The JAX ``TpuBeamSearch`` rules for the ε mode and the relax engine
+    (``asr_decoder_tpu/ops/beamsearch.py:769-803``); returns (mode,
+    eps_iters, relax_impl).  Builds the closure table where it is used."""
+    mode = cfg.eps_mode
+    if mode not in ("auto", "closure", "sweeps"):
+        raise ValueError(f"unknown eps_mode {mode!r}")
+    if mode in ("auto", "closure"):
+        try:
+            dev.build_closure()
+            mode = ("sweeps" if mode == "auto"
+                    and dev.max_closure_size > cfg.closure_lanes_max
+                    else "closure")
+        except ValueError:
+            if mode == "closure":
+                raise
+            mode = "sweeps"
+    eps_iters = 0
+    if mode == "sweeps":
+        eps_iters = cfg.eps_iters or dev.eps_depth
+        if eps_iters < 0:
+            raise ValueError("epsilon cycle: sweeps mode unusable (use "
+                             "eps_mode=closure)")
+    relax = cfg.relax_impl
+    A = max(dev.max_em_degree, 1)
+    C = dev.max_closure_size if mode == "closure" else 0
+    v3_ok = mode == "closure" and packed_lanes(A, C) > 0 and cfg.log_snapshots
+    if relax == "auto":
+        relax = "topk" if v3_ok else "sort"
+    elif relax == "topk" and not v3_ok:
+        raise ValueError("relax_impl=topk needs eps_mode=closure, a "
+                         "record that fits (3A+2C<=128) and log_snapshots")
+    elif relax not in ("topk", "sort"):
+        raise ValueError(f"unknown relax_impl {relax!r}")
+    return mode, eps_iters, relax
+
+
 class TorchBeamSearch:
     """Batched beam-search decoder over a fixed graph on one device.
 
@@ -312,8 +559,8 @@ class TorchBeamSearch:
     src/my-decoder/decoder-itf.h:10-25): ``init_state`` ≡ InitDecoding,
     ``advance`` ≡ AdvanceDecoding over a chunk of frames, host
     ``traceback`` ≡ GetBestPath, plus ``token_sets``/``get_lattices``.
-    Only the v3 engine (closure ε mode, a record of at most 128 lanes,
-    token snapshots on) is ported; any other config raises.
+    ``mode`` (closure|sweeps) and ``relax_impl`` (topk = v3, sort = v2)
+    follow the JAX class's ``auto`` rules.
     """
 
     def __init__(self, dev: DeviceFst, ilabel2pdf: np.ndarray,
@@ -326,64 +573,62 @@ class TorchBeamSearch:
             raise ValueError(
                 "gather_impl/fetch_impl name TPU paths; in the PyTorch port "
                 "the tensor's device picks the kernel — leave them empty")
-        if cfg.relax_impl == "sort":
-            raise NotImplementedError(f"relax_impl=sort is {_NOT_PORTED}")
         if dev.max_em_degree > cfg.arc_lanes:
             raise ValueError("graph not degree-bounded: rebuild DeviceFst "
                              "with arc_lanes")
-        if cfg.eps_mode == "sweeps":
-            raise NotImplementedError(f"eps_mode=sweeps is {_NOT_PORTED}")
-        try:
-            dev.build_closure()
-        except ValueError as e:
-            if cfg.eps_mode == "closure":
-                raise
-            raise NotImplementedError(
-                f"this graph needs eps_mode=sweeps ({e}), which is "
-                f"{_NOT_PORTED}") from e
-        A = max(dev.max_em_degree, 1)
-        C = dev.max_closure_size
-        if cfg.eps_mode == "auto" and C > cfg.closure_lanes_max:
-            raise NotImplementedError(
-                f"closure fan-out {C} > closure_lanes_max selects sweeps "
-                f"mode, which is {_NOT_PORTED}")
-        if not packed_lanes(A, C) or not cfg.log_snapshots:
-            raise NotImplementedError(
-                f"this config needs the v2 sort engine (record 3A+2C="
-                f"{3 * A + 2 * C} > 128 lanes or log_snapshots off), which "
-                f"is {_NOT_PORTED}")
+        self.mode, eps_iters, self.relax_impl = _select_engine(dev, cfg)
         self.dev = dev
         self.device = torch.device(device)
         self._ilabel2pdf = np.asarray(ilabel2pdf, np.int32)
         self._pdf_max = int(self._ilabel2pdf[dev.em_ilabel].max()) \
             if len(dev.em_ilabel) else -1
-        self.pgraph, self.lanes = make_packed_graph(dev, self._ilabel2pdf,
-                                                    self.device)
-        self.A, self.C = A, C
-        self.beam_width = min(cfg.beam_width, cfg.max_active)
-        self.num_stages = 1 + int(C > 0)
-        self._cfg = dict(K=self.beam_width, A=A, C=C,
-                         F=int(cfg.topk_overfetch), beam=float(cfg.beam),
-                         min_active=int(cfg.min_active),
-                         acoustic_scale=float(cfg.acoustic_scale))
+        self.A = A = max(dev.max_em_degree, 1)
+        self.C = C = dev.max_closure_size if self.mode == "closure" else 0
+        self.beam_width = K = min(cfg.beam_width, cfg.max_active)
+        common = dict(K=K, A=A, C=C, beam=float(cfg.beam),
+                      min_active=int(cfg.min_active),
+                      acoustic_scale=float(cfg.acoustic_scale))
+        if self.relax_impl == "topk":
+            self.graph = None
+            self.pgraph, self.lanes = make_packed_graph(
+                dev, self._ilabel2pdf, self.device)
+            self._cfg = dict(common, F=int(cfg.topk_overfetch))
+            self.num_stages = 1 + int(C > 0)
+        else:
+            self.pgraph, self.lanes = None, None
+            self.graph = make_graph_arrays(dev, self._ilabel2pdf, self.mode,
+                                           self.device)
+            self._cfg = dict(common, E=eps_iters, mode=self.mode)
+            self.num_stages = 1 + (eps_iters if self.mode == "sweeps"
+                                   else int(C > 0))
+
+    def _frame(self, st, co, ll):
+        if self.relax_impl == "topk":
+            return _frame_step_v3(self.pgraph, st, co, ll, cfg=self._cfg)
+        return _frame_step(self.graph, st, co, ll, cfg=self._cfg)
 
     # -- InitDecoding ------------------------------------------------------
     @torch.inference_mode()
     def init_state(self, batch: int) -> tuple[BeamState, FrameLog]:
-        K, C = self.beam_width, self.C
+        K = self.beam_width
         state = torch.full((batch, K), NO_STATE, dtype=torch.int32,
                            device=self.device)
         cost = torch.full((batch, K), INF, dtype=torch.float32,
                           device=self.device)
-        # unconditional CLO_BIT on the start token: the closure stage
-        # fetches its record (harmless if start has no ε)
-        state[:, 0] = self.pgraph.start | (CLO_BIT if C > 0 else 0)
         cost[:, 0] = 0.0
-        if C > 0:
-            state, cost, prev, aid = _clo_stage(self.pgraph, state, cost,
-                                                cfg=self._cfg)
+        if self.relax_impl == "sort":
+            state[:, 0] = self.graph.start
+            state, cost, (prev, aid) = _eps_stages(self.graph, state, cost,
+                                                   cfg=self._cfg)
+        elif self.C > 0:
+            # unconditional CLO_BIT on the start token: the closure stage
+            # fetches its record (harmless if start has no ε)
+            state[:, 0] = self.pgraph.start | CLO_BIT
+            state, cost, prev, aid = _clo_stage_v3(self.pgraph, state, cost,
+                                                   cfg=self._cfg)
             prev, aid = prev[None], aid[None]
         else:
+            state[:, 0] = self.pgraph.start
             prev = torch.zeros((0, batch, K), dtype=torch.int32,
                                device=self.device)
             aid = torch.zeros_like(prev)
@@ -395,7 +640,8 @@ class TorchBeamSearch:
                 ) -> tuple[BeamState, FrameLog]:
         """loglikes f32[B,T,V]; frame_mask bool[B,T] (False = padding),
         host or device.  Returns the new beam and the chunk's logs
-        (prev/aid [T,S,B,K], snapshots [T,B,K]) on the search's device."""
+        (prev/aid [T,S,B,K], snapshots [T,B,K], or [T,B,0] with
+        ``log_snapshots`` off) on the search's device."""
         lls = torch.as_tensor(loglikes, dtype=torch.float32,
                               device=self.device)
         B, T, V = lls.shape
@@ -413,18 +659,19 @@ class TorchBeamSearch:
         live_frames = mask_host.any(axis=0)
         lls = lls.transpose(0, 1).contiguous()             # [T,B,V]
         K, S = self.beam_width, self.num_stages
+        snap_k = K if self.config.log_snapshots else 0
         st, co = state.tok_state, state.tok_cost
         prevs = torch.empty((T, S, B, K), dtype=torch.int32,
                             device=self.device)
         aids = torch.empty_like(prevs)
-        toks = torch.empty((T, B, K), dtype=torch.int32, device=self.device)
-        costs = torch.empty((T, B, K), dtype=torch.float32,
+        toks = torch.empty((T, B, snap_k), dtype=torch.int32,
+                           device=self.device)
+        costs = torch.empty((T, B, snap_k), dtype=torch.float32,
                             device=self.device)
         slot = _lane_iota(K, self.device)                  # [1,K]
         for t in range(T):
             if live_frames[t]:
-                ns, nc, prev, aid = _frame_step(self.pgraph, st, co, lls[t],
-                                                cfg=self._cfg)
+                ns, nc, prev, aid = self._frame(st, co, lls[t])
                 m = mask[:, t, None]
                 st = torch.where(m, ns, st)
                 co = torch.where(m, nc, co)
@@ -433,8 +680,9 @@ class TorchBeamSearch:
             else:
                 prevs[t] = slot
                 aids[t] = ARC_STAY
-            toks[t] = st
-            costs[t] = co
+            if snap_k:
+                toks[t] = st
+                costs[t] = co
         return BeamState(st, co), FrameLog(prevs, aids, toks, costs)
 
     def decode(self, loglikes, frame_mask=None):
@@ -449,6 +697,10 @@ class TorchBeamSearch:
                    num_frames: int | None = None) -> list[dict[int, float]]:
         """Per-frame surviving-token sets {orig_state: cost} for utterance
         ``b``, folding split continuation states back to their source."""
+        if not self.config.log_snapshots:
+            raise RuntimeError(
+                "lattice reconstruction needs DecoderConfig.log_snapshots="
+                "True (token snapshots were not recorded)")
         orig = self.dev.orig_state
         tok_state, tok_cost = _np(logs.tok_state), _np(logs.tok_cost)
         if num_frames is None:
@@ -491,33 +743,80 @@ class TorchBeamSearch:
         """Per-utterance dicts with arc ids, words, ilabels, cost.
 
         ``logs``: one FrameLog or a list of per-chunk FrameLogs (walked in
-        reverse without concatenation).  The device logs only (prev slot,
-        flat candidate index); arc ids are re-derived on the host as
-        ``em_arcid[em_offset[prev_state] + lane]`` (closure entries as
-        ``clo_offset[post_emit_state] + lane``) from the token snapshots.
-        ``fst_arcs``: the source StdFst for olabel/ilabel lookup; if None
-        only arc ids and cost are returned."""
-        dev = self.dev
-        A, C = self.A, self.C
+        reverse without concatenation).  ``fst_arcs``: the source StdFst
+        for olabel/ilabel lookup; if None only arc ids and cost are
+        returned.  The super-final token is preferred, else the best live
+        one."""
         tok_state = _np(state.tok_state)
         tok_cost = _np(state.tok_cost)
         chunks = logs if isinstance(logs, list) else [logs]
-        chunks = [(_np(c.prev_slot), _np(c.arc_id), _np(c.tok_state))
-                  for c in chunks]
-        init_snap = _np(init_log.tok_state)
-        iprev = _np(init_log.prev_slot)
-        iaid = _np(init_log.arc_id)
-        final_id = int(dev.final_state)
+        walk = (self._walk_v3 if self.relax_impl == "topk"
+                else self._walk_v2)(chunks, init_log)
+        final_id = int(self.dev.final_state)
         results = []
         for b in range(tok_state.shape[0]):
             finals = np.where(tok_state[b] == final_id)[0]
             if len(finals):
                 slot = int(finals[np.argmin(tok_cost[b][finals])])
-                reached_final = True
             else:
                 slot = int(np.argmin(tok_cost[b]))
-                reached_final = False
-            total = float(tok_cost[b, slot])
+            arc_ids = walk(b, slot)[::-1]
+            res = dict(arc_ids=arc_ids, cost=float(tok_cost[b, slot]),
+                       reached_final=bool(len(finals)))
+            if fst_arcs is not None:
+                ol = fst_arcs.arc_olabel[arc_ids]
+                il = fst_arcs.arc_ilabel[arc_ids]
+                res["words"] = [int(x) for x in ol[ol != 0]]
+                res["ilabels"] = [int(x) for x in il[il != 0]]
+            results.append(res)
+        return results
+
+    def _decode_stage_arcs(self, stage: int, a: int) -> list[int]:
+        """v2: a logged per-stage arc id → original StdFst arc ids,
+        backward-ordered."""
+        if a < 0:
+            return []
+        if stage == 0:                       # emitting block index
+            return [int(self.dev.em_arcid[a])]
+        if self.mode == "closure":           # closure entry index
+            return [int(x) for x in self.dev.clo_paths(a)]
+        aid = int(self.dev.eps_arcid[a])     # ε block index
+        return [aid] if aid >= 0 else []     # skip split-chain links
+
+    def _walk_v2(self, chunks, init_log):
+        """v2 backward walk: the logs hold (prev slot, block arc id) per
+        stage, so arc ids come straight from the DeviceFst tables."""
+        chunks = [(_np(c.prev_slot), _np(c.arc_id)) for c in chunks]
+        iprev, iaid = _np(init_log.prev_slot), _np(init_log.arc_id)
+
+        def walk(b: int, slot: int) -> list[int]:
+            arcs_rev: list[int] = []
+            for prevs, aids in reversed(chunks):
+                for t in range(prevs.shape[0] - 1, -1, -1):
+                    for s in range(prevs.shape[1] - 1, -1, -1):
+                        arcs_rev.extend(self._decode_stage_arcs(
+                            s, int(aids[t, s, b, slot])))
+                        slot = int(prevs[t, s, b, slot])
+            for s in range(iprev.shape[0] - 1, -1, -1):
+                arcs_rev.extend(self._decode_stage_arcs(
+                    s + 1, int(iaid[s, b, slot])))
+                slot = int(iprev[s, b, slot])
+            return arcs_rev
+        return walk
+
+    def _walk_v3(self, chunks, init_log):
+        """v3 backward walk: the logs hold only (prev slot, flat candidate
+        index); arc ids are re-derived as ``em_arcid[em_offset[prev_state]
+        + lane]`` (closure entries as ``clo_offset[post_emit_state] +
+        lane``) from the token snapshots."""
+        dev = self.dev
+        A, C = self.A, self.C
+        chunks = [(_np(c.prev_slot), _np(c.arc_id), _np(c.tok_state))
+                  for c in chunks]
+        init_snap = _np(init_log.tok_state)
+        iprev, iaid = _np(init_log.prev_slot), _np(init_log.arc_id)
+
+        def walk(b: int, slot: int) -> list[int]:
             arcs_rev: list[int] = []
             for ci in range(len(chunks) - 1, -1, -1):
                 prevs, aids, snaps = chunks[ci]
@@ -558,13 +857,5 @@ class TorchBeamSearch:
                 if fi1 >= 0:
                     entry = int(dev.clo_offset[int(dev.start)]) + fi1 % C
                     arcs_rev.extend(int(x) for x in dev.clo_paths(entry))
-            arc_ids = arcs_rev[::-1]
-            res = dict(arc_ids=arc_ids, cost=total,
-                       reached_final=reached_final)
-            if fst_arcs is not None:
-                ol = fst_arcs.arc_olabel[arc_ids]
-                il = fst_arcs.arc_ilabel[arc_ids]
-                res["words"] = [int(x) for x in ol[ol != 0]]
-                res["ilabels"] = [int(x) for x in il[il != 0]]
-            results.append(res)
-        return results
+            return arcs_rev
+        return walk

@@ -1,4 +1,5 @@
-"""Live-adaptive state-record fetch for the beam search.
+"""Live-adaptive row fetch: the beam search's state-record fetch and the
+flat row gather of the ``tools/perf`` microbenches.
 
 Port of ``asr_decoder_tpu/ops/fetch.py``.  Each active beam token needs its
 state's packed record (emitting arcs + ε-closure entries, field-major) from
@@ -12,6 +13,11 @@ which reads only the first ``live[b]`` tokens of each row (the beam is
 kept live-prefix); on a CPU tensor it runs the plain version, which
 fetches every row.  Rows from ``live[b]`` on are unspecified either way —
 callers mask them by their own validity.
+
+``row_gather`` is the same kernel as a flat gather ``out[i] = table[idx[i]]``
+for ``i < count`` (B = 1, K = len(idx)): the counterpart of the TPU
+microbench kernels ``make_dma_gather``, ``make_dma`` and ``make_dma_dyn``
+(``tools/perf``), at 128-512 lanes.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 
 from asr_decoder_tpu_torch.ops._build import load_library
 
-LANES = (32, 64, 128)
+LANES = (32, 64, 128, 256, 512)
 
 # kernel launches from this process (CUDA tensors only); callers reset it
 launches = 0
@@ -40,13 +46,14 @@ def _kernel():
 
 
 def fetch_plain(table: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain PyTorch version (CPU path and reference)."""
-    return table[state.clamp(min=0)]
+    """The kernel's plain PyTorch version (CPU path and reference), with
+    the kernel's clamp of out-of-range states into the table."""
+    return table[state.clamp(0, table.shape[0] - 1)]
 
 
 def fetch_records(table: torch.Tensor, state: torch.Tensor,
                   live: torch.Tensor) -> torch.Tensor:
-    """Each token's state record: i32 table [S, L] (L in 32/64/128),
+    """Each token's state record: i32 table [S, L] (L in 32-512),
     i32 state [B, K] (negative = dead slot, read as row 0), i32 live [B]
     live-prefix lengths → i32 [B, K, L]."""
     if table.dim() != 2 or table.shape[1] not in LANES:
@@ -85,3 +92,14 @@ def fetch_records(table: torch.Tensor, state: torch.Tensor,
         raise RuntimeError(f"fetch kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def row_gather(table: torch.Tensor, idx: torch.Tensor,
+               count: torch.Tensor) -> torch.Tensor:
+    """``out[i] = table[idx[i]]`` for ``i < count[0]``: i32 table [S, L]
+    (L in 32-512), i32 idx [N], i32 count [1] on the table's device (read
+    by the kernel, so no host sync) → i32 [N, L]; rows from ``count`` on
+    are unspecified.  One launch of the fetch kernel with B = 1."""
+    if idx.dim() != 1:
+        raise ValueError(f"idx must be [N], got {tuple(idx.shape)}")
+    return fetch_records(table, idx[None], count)[0]

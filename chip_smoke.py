@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's streaming-serve path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: the streaming-serve
+path, the v2 search engine, and the ``tools/perf`` row-gather microbenches.
 
     python3 chip_smoke.py
 
@@ -9,19 +10,29 @@ sources in this checkout, then:
   1. reports the card (name; ``nvidia-smi`` name and power limit);
   2. checks each kernel bit-exactly against its plain PyTorch version at
      the shapes the serve path gives it, and times both;
-  3. decodes fixed loglikes through the full-size search (200k-state graph,
-     K=512, B=16) on the card and on the CPU: logs, words and costs must
-     be bit-identical (every search op is an exact fp32 add/compare, gather
-     or sort);
-  4. runs the full-width flagship AM on the card and on the CPU
+  3. checks the row-gather counterparts of the three ``tools/perf`` TPU
+     kernels (``make_dma_gather``, ``make_dma``, ``make_dma_dyn``) bit-
+     exactly against their plain version at the JAX tools' shapes (2M-row
+     tables, 131,072 indices, 128-512 lanes, live counts 131,072 / 32,768
+     / 8,192), times both, drives each once through its tool's chained
+     calls, counting the kernel's launches there, and runs each tool's
+     bench;
+  4. decodes fixed loglikes through the full-size search (200k-state graph,
+     K=512, B=16) on the card and on the CPU — the v3 engine, then the v2
+     engine in closure and in sweeps ε mode: logs, words and costs must be
+     bit-identical (every search op is an exact fp32 add/compare, gather or
+     sort), and the gather kernel must launch in each v2 run;
+  5. runs the full-width flagship AM on the card and on the CPU
      (allclose, ``AM_ATOL``: the products sum in another order);
-  5. serves 16 concurrent 4-second utterances through the port's
+  6. serves 16 concurrent 4-second utterances through the port's
      ``AsrServer`` built by its CLI loader, and checks every final reply
      against an in-process ``BatchedStreamingDecoder`` on the same waves,
      and that both kernels launched during the serve run.
 
 Any failed check raises, so the script exits non-zero; it never falls back
-to the CPU.  Its last two lines are the kernels' JSON record and
+to the CPU.  Its last two lines are the kernels' JSON record (the five TPU
+kernels: the gather and the fetch with their serve-run launches, the three
+microbench row gathers with their tool-path launches) and
 ``{"ok": true, "device": {...}}``.  It imports no JAX: of ``asr_decoder_tpu``
 it uses only the numpy host modules the port shares, which it checks at
 the end of the run.
@@ -51,6 +62,9 @@ AM_ATOL = 1e-3                     # log-likelihood units
 GATHER_SHAPES = [(2048, 4096), (4096, 1024), (2560, 1024), (1024, 512),
                  (512, 512), (65536, 4096)]    # (V, N) at B=32
 FETCH_ROWS, FETCH_LANES = (200_001, 2_500_000), (32, 64, 128)
+# the tools/perf row-gather microbenches (JAX tools' shapes)
+ROW_S, ROW_NIDX, ROW_WIDTHS = 2_000_000, 131_072, (128, 256, 512)
+ROW_LIVE = (131_072, 32_768, 8_192)
 # The numpy-only host modules of asr_decoder_tpu that the port shares (see
 # asr_decoder_tpu_torch/__init__.py), and the package __init__s above them.
 # Nothing else of that package, and nothing of jax, may load in this run.
@@ -91,31 +105,10 @@ def time_ms(fn, calls: int = 20, replays: int = 20) -> tuple[float, float]:
     captured in one CUDA graph and replayed, so the host's launch cost is
     left out.  Wall: back-to-back eager calls timed with CUDA events, which
     at these sizes is set by the host's launch path."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    graph.replay()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    device = start.elapsed_time(end) / (replays * calls)
-    start.record()
-    for _ in range(replays * calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return device, start.elapsed_time(end) / (replays * calls)
+    from asr_decoder_tpu_torch.tools.perf._common import time_loop
+    wall, device = time_loop(lambda: [fn() for _ in range(calls)],
+                             torch.device("cuda", 0), calls, replays)
+    return device, wall
 
 
 # ----------------------------------------------------------------------
@@ -198,7 +191,76 @@ def phase_kernels(dev) -> dict:
 
 
 # ----------------------------------------------------------------------
-# phase 3: the full-size search, card against CPU
+# phase 3: the tools/perf row-gather kernels against their plain version
+# ----------------------------------------------------------------------
+
+def phase_rows(dev) -> dict:
+    """The three TPU microbench kernels' counterparts — one CUDA kernel,
+    ``ops/fetch.py:row_gather`` — against the plain ``table[idx]``; each
+    also drives its tool's chained calls (``bench_row_gather.chain``) once
+    eagerly, the path whose launches are counted, and then runs through its
+    tool's bench, which prints the tool's rows."""
+    from asr_decoder_tpu_torch.ops import fetch
+    from asr_decoder_tpu_torch.tools.perf import bench_dma_variants as dv
+    from asr_decoder_tpu_torch.tools.perf import bench_row_gather as rg
+    gen = torch.Generator(device=dev).manual_seed(4)
+    idx = torch.randint(0, ROW_S, (ROW_NIDX,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    out = {k: dict(max_abs_err=0.0, launches=0) for k in
+           ("make_dma_gather", "make_dma", "make_dma_dyn")}
+    rows = []
+    for W in ROW_WIDTHS:
+        table = torch.randint(-2**31, 2**31 - 1, (ROW_S, W), generator=gen,
+                              device=dev, dtype=torch.int32)
+        cases = [("make_dma", dv.make_dma(W), ROW_NIDX)]
+        if W == 128:
+            cases.insert(0, ("make_dma_gather", rg.make_dma_gather(),
+                             ROW_NIDX))
+            cases += [("make_dma_dyn", dv.make_dma_dyn(W, n), n)
+                      for n in ROW_LIVE]
+        for name, fn, n in cases:
+            got = fn(table, idx)
+            want = fetch.fetch_plain(table, idx[None])[0]
+            torch.cuda.synchronize()
+            check(torch.equal(got[:n], want[:n]),
+                  f"{name} [{ROW_S},{W}] x {ROW_NIDX} rows < {n} bit-exact")
+            err = (got[:n].double() - want[:n].double()).abs().max().item()
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            fetch.launches = 0
+            rg.chain(fn, table, idx)()
+            torch.cuda.synchronize()
+            out[name]["launches"] += fetch.launches
+            ms, wms = time_ms(lambda: fn(table, idx), calls=10, replays=5)
+            pms, pwms = time_ms(lambda: rg.xla_row_gather(table, idx),
+                                calls=10, replays=5)
+            rows.append(f"rows    {name} [{ROW_S},{W}] x {ROW_NIDX}, live "
+                        f"{n}: device kernel {ms:.4f} ms plain {pms:.4f} "
+                        f"ms; per eager call kernel {wms:.4f} ms plain "
+                        f"{pwms:.4f} ms")
+            if (name, W, n) in (("make_dma_gather", 128, ROW_NIDX),
+                                ("make_dma", ROW_WIDTHS[-1], ROW_NIDX),
+                                ("make_dma_dyn", 128, ROW_LIVE[1])):
+                out[name].update(ms=ms, plain_ms=pms)
+        del table
+    for r in rows:
+        print(r)
+    for name, rec in out.items():
+        check(rec["launches"] > 0,
+              f"{name} kernel launched on its tool path ({rec['launches']})")
+    # each tool's own bench (its launches, in CUDA-graph capture and replay
+    # among them, are not counted)
+    sizes = dict(rows=ROW_S, nidx=ROW_NIDX, device=dev)
+    dv.bench_gather(rg.make_dma_gather(), rg.W, "tool rg: dma", **sizes)
+    for W in ROW_WIDTHS:
+        dv.bench_gather(dv.make_dma(W), W, f"tool dv: dma W={W}", **sizes)
+    for n in ROW_LIVE:
+        dv.bench_gather(dv.make_dma_dyn(128, n), 128,
+                        f"tool dv: dma W=128 live={n}", **sizes)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 4: the full-size search, card against CPU
 # ----------------------------------------------------------------------
 
 def make_graph():
@@ -210,29 +272,40 @@ def make_graph():
     return fst, i2p
 
 
-def phase_search(dev, fst, i2p) -> None:
+def phase_search(dev, fst, i2p, frames: int = FRAMES, **engine) -> dict:
+    """One search config (``SEARCH`` with ``engine`` over it) on the card
+    and on the CPU, bit-identical; returns the kernel launches of the card
+    run and its ms/frame on both devices."""
     from asr_decoder_tpu.decoder.config import DecoderConfig
     from asr_decoder_tpu.fst.device_fst import DeviceFst
+    from asr_decoder_tpu_torch.ops import fetch, gather
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     dfst = DeviceFst.build(fst, arc_lanes=ARC_LANES)
-    cfg = DecoderConfig(**SEARCH)
+    cfg = DecoderConfig(**{**SEARCH, **engine})
     rng = np.random.default_rng(1)
-    sc = rng.standard_normal((BATCH, FRAMES, NUM_PDFS)).astype(np.float32) * 2
+    sc = rng.standard_normal((BATCH, frames, NUM_PDFS)).astype(np.float32) * 2
     ll = sc - np.log(np.exp(sc).sum(-1, keepdims=True))
-    runs = []
+    runs, rec = [], {}
     for d in (dev, torch.device("cpu")):
         search = TorchBeamSearch(dfst, i2p, cfg, device=d)
         lld = torch.from_numpy(ll).to(d)
         search.decode(lld[:, :4])                       # warm-up
+        gather.launches = fetch.launches = 0
         t0 = time.perf_counter()
         state, init_log, logs = search.decode(lld)
         if d.type == "cuda":
             torch.cuda.synchronize()
+        if d == dev:
+            rec["launches"] = {"gather": gather.launches,
+                               "fetch": fetch.launches}
         dt = time.perf_counter() - t0
+        rec[f"{d.type}_ms_per_frame"] = 1e3 * dt / frames
         runs.append((search, state, init_log, logs))
-        print(f"search {d.type}: {BATCH}x{FRAMES} frames over "
-              f"{dfst.num_states} states ({search.lanes}-lane records) in "
-              f"{dt:.3f} s = {1e3 * dt / FRAMES:.3f} ms/frame")
+        what = (f"v3, {search.lanes}-lane records" if search.lanes
+                else f"v2 {search.mode}, {search.num_stages} stages")
+        print(f"search {d.type}: {BATCH}x{frames} frames over "
+              f"{dfst.num_states} states ({what}) in {dt:.3f} s = "
+              f"{1e3 * dt / frames:.3f} ms/frame")
     (g, *gout), (c, *cout) = runs
     for go, co in zip(gout, cout):
         for gt, ct in zip(go, co):
@@ -246,13 +319,16 @@ def phase_search(dev, fst, i2p) -> None:
     live = (gout[0].tok_state >= 0).sum(1).float().mean().item()
     check(all(np.isfinite(r["cost"]) and r["arc_ids"] for r in gres),
           "every utterance has a finite best path")
-    print(f"search card == CPU: logs bit-identical, words and costs equal "
-          f"for {len(gres)} utterances (mean live tokens at the end "
-          f"{live:.1f}, words in utt 0: {len(gres[0]['words'])})")
+    print(f"search card == CPU ({g.relax_impl}, {g.mode}): logs "
+          f"bit-identical, words and costs equal for {len(gres)} utterances "
+          f"(mean live tokens at the end {live:.1f}, words in utt 0: "
+          f"{len(gres[0]['words'])}); card kernel launches "
+          f"{rec['launches']}")
+    return rec
 
 
 # ----------------------------------------------------------------------
-# phase 4: the full-width AM, card against CPU
+# phase 5: the full-width AM, card against CPU
 # ----------------------------------------------------------------------
 
 def phase_am(dev, nnet) -> None:
@@ -281,7 +357,7 @@ def phase_am(dev, nnet) -> None:
 
 
 # ----------------------------------------------------------------------
-# phase 5: serve through the port's server
+# phase 6: serve through the port's server
 # ----------------------------------------------------------------------
 
 def phase_serve(dev, nnet, fst) -> dict:
@@ -384,8 +460,15 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = phase_kernels(dev)
     print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
+    rows = phase_rows(dev)
+    print(f"phase rows done at {time.perf_counter() - t0:.1f} s")
     fst, i2p = make_graph()
-    phase_search(dev, fst, i2p)
+    v3 = phase_search(dev, fst, i2p)
+    check(v3["launches"]["fetch"] > 0, "fetch kernel launched by v3")
+    for mode in ("closure", "sweeps"):
+        v2 = phase_search(dev, fst, i2p, eps_mode=mode, relax_impl="sort")
+        check(v2["launches"]["gather"] > 0,
+              f"gather kernel launched by v2 {mode}")
     print(f"phase search done at {time.perf_counter() - t0:.1f} s")
     nnet = make_flagship(0, feat_dim=FEAT_DIM, num_pdfs=NUM_PDFS)
     phase_am(dev, nnet)
@@ -402,6 +485,18 @@ def main() -> int:
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="asr_decoder_tpu/ops/fetch.py:64",
              launches=launches["fetch"], **kernels["fetch"]),
+        dict(name="make_dma_gather", route="cuda",
+             source="asr_decoder_tpu_torch/csrc/fetch.cu",
+             replaces="tools/perf/bench_row_gather.py:38",
+             **rows["make_dma_gather"]),
+        dict(name="make_dma", route="cuda",
+             source="asr_decoder_tpu_torch/csrc/fetch.cu",
+             replaces="tools/perf/bench_dma_variants.py:22",
+             **rows["make_dma"]),
+        dict(name="make_dma_dyn", route="cuda",
+             source="asr_decoder_tpu_torch/csrc/fetch.cu",
+             replaces="tools/perf/bench_dma_variants.py:63",
+             **rows["make_dma_dyn"]),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,7 @@ def _live_rows(out, live):
     return [out[b, :live[b]] for b in range(len(live))]
 
 
-@pytest.mark.parametrize("L", [32, 64, 128])
+@pytest.mark.parametrize("L", [32, 64, 128, 256, 512])
 def test_fetch_matches_jax(L):
     pytest.importorskip("jax")
     from asr_decoder_tpu.ops.fetch import fetch_pages
@@ -48,8 +48,9 @@ def test_fetch_matches_jax(L):
 def test_fetch_rejects_bad_inputs():
     s = torch.zeros((2, 4), dtype=torch.int32)
     lv = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        F.fetch_records(torch.zeros((5, 48), dtype=torch.int32), s, lv)
+    for L in (48, 1024):
+        with pytest.raises(ValueError):
+            F.fetch_records(torch.zeros((5, L), dtype=torch.int32), s, lv)
     with pytest.raises(TypeError):
         F.fetch_records(torch.zeros((5, 32)), s, lv)
     with pytest.raises(ValueError):
@@ -58,7 +59,7 @@ def test_fetch_rejects_bad_inputs():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [32, 64, 128])
+@pytest.mark.parametrize("L", [32, 64, 128, 256, 512])
 @pytest.mark.parametrize("S", [200_001, 2_500_000])
 def test_fetch_kernel_matches_plain(cuda, S, L):
     table, state, live = _inputs(S, L, 16, 512, seed=L)

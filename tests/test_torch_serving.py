@@ -217,14 +217,15 @@ def test_unported_configs_raise(infos):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (and the shared host modules it
-    uses) leaves jax out of the process."""
+    """Importing every module of the port, its ``tools/perf`` included (and
+    the shared host modules it uses), leaves jax out of the process."""
     code = (
         "import sys, pkgutil, importlib, asr_decoder_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert 'asr_decoder_tpu_torch.serving.server' in mods\n"
+        "assert 'asr_decoder_tpu_torch.tools.perf.bench_points' in mods\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
