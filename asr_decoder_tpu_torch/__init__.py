@@ -15,27 +15,37 @@ Ported (module for module):
   ops/beamsearch.py            — both search engines: v3 (relax_impl=topk)
                                  and v2 (relax_impl=sort) in closure and
                                  sweeps ε mode, with the JAX auto rules
+  ops/beamsearch_clg.py        — the clg graph type: CLG ⊗ HMM composed on
+                                 the fly (v2 relax, ε sweeps)
+  ops/beamsearch_biglm.py      — the biglm-hclg graph type: HCLG ⊗ (G₂−G₁)
+                                 pair search, LM-candidate compaction
+  lm/device_lm.py              — device n-gram LM tables (hash, unigram,
+                                 backoff) and the difference LM
   models/layers.py, nnet.py    — all 13 layer kinds, the Nnet binary format,
                                  am_forward; models/flagship.py: make_flagship
   frontend/fbank.py            — fbank, streaming fbank, live/utterance CMVN
   frontend/pipeline.py         — fbank + CMVN + deltas (no pitch)
   serving/session.py, batcher.py, server.py — the streaming serve path
-                                 (hclg graphs, one device)
-  cli/_model.py, serve.py, decode.py
+                                 (hclg, clg and biglm-hclg graphs, one
+                                 device)
+  cli/_model.py, serve.py, decode.py (``--hmmfst-file`` loads a clg graph)
   utils/profiling.py           — torch.profiler ranges and Chrome traces
   tools/perf/*.py              — the search microbenches and operating-point
                                  tools (bench_row_gather, bench_dma_variants,
                                  bench_points, profile_production)
 
-Shared from ``asr_decoder_tpu`` (host-only numpy, no jax): ``fst/*``,
-``decoder/config.py``, ``decoder/gold.py``, ``decoder/raw_lattice.py``,
-``serving/protocol.py``, ``serving/client.py``, ``frontend/audio.py``,
-``align/*``, ``eval/synth_task.py``, ``models/transition.py``,
-``utils/config.py``, ``utils/logging.py``, ``utils/wer.py``.
+Shared from ``asr_decoder_tpu`` (host-only numpy, no jax): ``fst/*`` (incl.
+``fst/clg.py``), ``lm/arpa.py``, ``lm/synth_arpa.py``, ``decoder/config.py``,
+``decoder/gold.py``, ``decoder/raw_lattice.py`` (incl. ``ClgExpander`` and
+``BigLmExpander``), ``serving/protocol.py``, ``serving/client.py``,
+``frontend/audio.py``, ``align/*``, ``eval/synth_task.py``,
+``models/transition.py``, ``utils/config.py``, ``utils/logging.py``,
+``utils/wer.py``.
 
 Not ported yet (raise ``NotImplementedError`` where a config reaches them):
-CLG and BigLM graphs, pitch, VAD (and so endpointing); nor CTC training,
-multi-device, ``bench.py`` and ``eval.py``.
+pitch, VAD (and so endpointing); nor ``serving/v1_session.py``,
+``serving/post_service.py``, CTC training, multi-device, ``bench.py`` and
+``eval.py``.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,9 @@
 """Shared model/graph loading for the CLI mains (the OnlineDecoderInfo
 construction of OnlineDecoderConf + OnlineDecoderInfo, ref:
 src/kaldi-nnet3/kaldi-online-nnet3-my-decoder.h:22-231).  Port of
-``asr_decoder_tpu/cli/_model.py``: the same flags plus ``--device``."""
+``asr_decoder_tpu/cli/_model.py``: the same flags (``--hmmfst-file`` loads
+a ``clg`` graph) plus ``--device``.  Like the JAX loader it builds no
+BigLM: a ``biglm-hclg`` info is made with ``OnlineDecoderInfo(difflm=...)``."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import numpy as np
 import torch
 
 from asr_decoder_tpu.decoder.config import DecoderConfig
+from asr_decoder_tpu.fst.clg import ClgFst
 from asr_decoder_tpu.fst.fst import StdFst
 from asr_decoder_tpu.fst.symbol import SymbolTable
 from asr_decoder_tpu.utils.config import ConfigOptions
@@ -22,7 +25,7 @@ from asr_decoder_tpu_torch.serving.session import (OnlineDecoderConfig,
 
 def register_info_flags(opts: ConfigOptions):
     """Register the session flag surface; returns the config objects and
-    ``extra`` (``trans-model``, ``device``)."""
+    ``extra`` (``trans-model``, ``hmmfst-file``, ``device``)."""
     dec = DecoderConfig()
     online = OnlineDecoderConfig()
     fbank = FbankConfig()
@@ -31,12 +34,16 @@ def register_info_flags(opts: ConfigOptions):
     online.register(opts)
     fbank.register(opts, "fbank")
     am.register(opts, "am")
-    extra = {"trans-model": "", "device": "cuda"}
+    extra = {"trans-model": "", "hmmfst-file": "", "device": "cuda"}
     opts.register("trans-model",
                   lambda: extra["trans-model"],
                   lambda v: extra.__setitem__("trans-model", v),
                   "Kaldi transition model (ilabel→pdf map); empty = "
                   "identity/CTC mapping", str)
+    opts.register("hmmfst-file",
+                  lambda: extra["hmmfst-file"],
+                  lambda v: extra.__setitem__("hmmfst-file", v),
+                  "HMM bundle for graph-type=clg (ref --hmmfst-file)", str)
     opts.register("device",
                   lambda: extra["device"],
                   lambda v: extra.__setitem__("device", v),
@@ -62,7 +69,15 @@ def build_info(am_path: str, graph_path: str, words_path: str,
     torch.backends.cudnn.allow_tf32 = False
     nnet = Nnet.read_binary(am_path)
     words = SymbolTable.read_text(words_path)
-    fst = load_graph(graph_path)
+    kw = {}
+    if online.graph_type == "clg":
+        # the graph file is the CLG layer; the HMMs come from the bundle
+        if not extra.get("hmmfst-file"):
+            raise ValueError("--hmmfst-file is required for graph-type=clg")
+        kw["clg_graph"] = ClgFst.load(graph_path, extra["hmmfst-file"])
+        fst = None
+    else:
+        fst = load_graph(graph_path)
     if extra["trans-model"]:
         from asr_decoder_tpu.models.transition import TransitionModel
         tm = TransitionModel.read(extra["trans-model"])
@@ -76,4 +91,4 @@ def build_info(am_path: str, graph_path: str, words_path: str,
             i2p = np.arange(n + 1, dtype=np.int64)
     return OnlineDecoderInfo(nnet, fst, words, i2p, decoder_config=dec,
                              online_config=online, fbank_config=fbank,
-                             am_config=am, device=device)
+                             am_config=am, device=device, **kw)

@@ -279,14 +279,19 @@ def _relax_and_prune(dst, cost, *, K, beam, min_active, extra_keys=()):
             torch.where(keep, win, 0), keep, *extras_k)
 
 
+def _split_fields(rows, fields: int):
+    """Field-major record rows [B,K,F·L] → F flat [B, K·L] lane blocks."""
+    B, K, FL = rows.shape
+    L = FL // fields
+    return [rows[:, :, f * L:(f + 1) * L].reshape(B, K * L)
+            for f in range(fields)]
+
+
 def _rows(rec, state, fields: int):
     """Each token's padded record row, split into ``fields`` flat [B, K·L]
     lane blocks; dead slots read row 0 (masked by the caller)."""
-    B, K = state.shape
-    L = rec.shape[1] // fields
-    rows = rec[torch.where(state != NO_STATE, state, 0)]     # [B,K,F*L]
-    return [rows[:, :, f * L:(f + 1) * L].reshape(B, K * L)
-            for f in range(fields)]
+    return _split_fields(rec[torch.where(state != NO_STATE, state, 0)],
+                         fields)
 
 
 def _emit_stage(g: GraphArrays, state, cost, ll, *, cfg):
@@ -514,6 +519,60 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def run_frames(step, carry: tuple, loglikes, frame_mask, *, device,
+               stages: int, snapshots: bool, pdf_max: int, flags: int = 0):
+    """The frame loop every search shares (the JAX ``lax.scan`` over a
+    chunk): ``step(carry, ll f32[B,V])`` returns ``(carry, prev, aid,
+    *flags)`` — ``carry`` a tuple of [B,K] beam lanes, ``prev``/``aid``
+    i32[stages,B,K], each flag bool[B].  A row whose frame is masked keeps
+    its carry and logs prev = its own slot, aid = ARC_STAY, flags False.
+
+    ``loglikes`` f32[B,T,V] and ``frame_mask`` bool[B,T] (None = all
+    frames), host or device.  Returns ``(carry, prevs [T,S,B,K], aids,
+    flags [T,B] each, snapshots [T,B,K] per carry lane)``; the snapshots
+    are [T,B,0] with ``snapshots`` off."""
+    lls = torch.as_tensor(loglikes, dtype=torch.float32, device=device)
+    B, T, V = lls.shape
+    if pdf_max >= V:
+        raise ValueError(f"graph scores pdf {pdf_max} but loglikes have "
+                         f"{V} columns")
+    if frame_mask is None:
+        mask_host = np.ones((B, T), bool)
+    else:
+        mask_host = _np(frame_mask).astype(bool)
+    mask = torch.from_numpy(mask_host).to(device)
+    # whole-batch masked frames skip the frame step (the reference's
+    # SkipBlockFrame fast path, ref nnet-nnet.h:265-275); decided on the
+    # host once per chunk, so the frame loop never syncs
+    live_frames = mask_host.any(axis=0)
+    lls = lls.transpose(0, 1).contiguous()                 # [T,B,V]
+    K = carry[0].shape[1]
+    snap_k = K if snapshots else 0
+    prevs = torch.empty((T, stages, B, K), dtype=torch.int32, device=device)
+    aids = torch.empty_like(prevs)
+    flag_logs = [torch.zeros((T, B), dtype=torch.bool, device=device)
+                 for _ in range(flags)]
+    snaps = [torch.empty((T, B, snap_k), dtype=c.dtype, device=device)
+             for c in carry]
+    slot = _lane_iota(K, device)                           # [1,K]
+    for t in range(T):
+        if live_frames[t]:
+            new, prev, aid, *fl = step(carry, lls[t])
+            m = mask[:, t, None]
+            carry = tuple(torch.where(m, n, o) for n, o in zip(new, carry))
+            prevs[t] = torch.where(m[None], prev, slot)
+            aids[t] = torch.where(m[None], aid, ARC_STAY)
+            for log, f in zip(flag_logs, fl):
+                log[t] = f & mask[:, t]
+        else:
+            prevs[t] = slot
+            aids[t] = ARC_STAY
+        if snap_k:
+            for snap, c in zip(snaps, carry):
+                snap[t] = c
+    return carry, prevs, aids, flag_logs, snaps
+
+
 def _select_engine(dev: DeviceFst, cfg: DecoderConfig
                    ) -> tuple[str, int, str]:
     """The JAX ``TpuBeamSearch`` rules for the ε mode and the relax engine
@@ -642,48 +701,15 @@ class TorchBeamSearch:
         host or device.  Returns the new beam and the chunk's logs
         (prev/aid [T,S,B,K], snapshots [T,B,K], or [T,B,0] with
         ``log_snapshots`` off) on the search's device."""
-        lls = torch.as_tensor(loglikes, dtype=torch.float32,
-                              device=self.device)
-        B, T, V = lls.shape
-        if self._pdf_max >= V:
-            raise ValueError(f"graph scores pdf {self._pdf_max} but "
-                             f"loglikes have {V} columns")
-        if frame_mask is None:
-            mask_host = np.ones((B, T), bool)
-        else:
-            mask_host = _np(frame_mask).astype(bool)
-        mask = torch.from_numpy(mask_host).to(self.device)
-        # whole-batch masked frames skip the frame step (the reference's
-        # SkipBlockFrame fast path, ref nnet-nnet.h:265-275); decided on
-        # the host once per chunk, so the frame loop never syncs
-        live_frames = mask_host.any(axis=0)
-        lls = lls.transpose(0, 1).contiguous()             # [T,B,V]
-        K, S = self.beam_width, self.num_stages
-        snap_k = K if self.config.log_snapshots else 0
-        st, co = state.tok_state, state.tok_cost
-        prevs = torch.empty((T, S, B, K), dtype=torch.int32,
-                            device=self.device)
-        aids = torch.empty_like(prevs)
-        toks = torch.empty((T, B, snap_k), dtype=torch.int32,
-                           device=self.device)
-        costs = torch.empty((T, B, snap_k), dtype=torch.float32,
-                            device=self.device)
-        slot = _lane_iota(K, self.device)                  # [1,K]
-        for t in range(T):
-            if live_frames[t]:
-                ns, nc, prev, aid = self._frame(st, co, lls[t])
-                m = mask[:, t, None]
-                st = torch.where(m, ns, st)
-                co = torch.where(m, nc, co)
-                prevs[t] = torch.where(m[None], prev, slot)
-                aids[t] = torch.where(m[None], aid, ARC_STAY)
-            else:
-                prevs[t] = slot
-                aids[t] = ARC_STAY
-            if snap_k:
-                toks[t] = st
-                costs[t] = co
-        return BeamState(st, co), FrameLog(prevs, aids, toks, costs)
+        def step(carry, ll):
+            ns, nc, prev, aid = self._frame(*carry, ll)
+            return (ns, nc), prev, aid
+
+        carry, prevs, aids, _, snaps = run_frames(
+            step, tuple(state), loglikes, frame_mask, device=self.device,
+            stages=self.num_stages, snapshots=self.config.log_snapshots,
+            pdf_max=self._pdf_max)
+        return BeamState(*carry), FrameLog(prevs, aids, *snaps)
 
     def decode(self, loglikes, frame_mask=None):
         """Full utterance decode: init + advance.  Returns

@@ -19,6 +19,12 @@ The one-tick deferred log copy of the JAX arena is kept (tick t's logs
 stream to the host while tick t+1 computes), with its slot-reuse fault
 repaired: ``release`` delivers the pending logs first, so a slot acquired
 again never inherits its previous channel's last logs.
+
+Beam and logs are handled generically over the three searches (hclg, clg,
+biglm-hclg), by the JAX rule: the beam is a NamedTuple of [B, ...] lanes;
+every log leaf has the frame axis T first, then ``[stages, B, ...]`` for a
+leaf of ndim ≥ 4 and ``[B, ...]`` otherwise (the BigLM ``overflow`` leaf is
+[T, B]); the init log follows the same rule without the T axis.
 """
 
 from __future__ import annotations
@@ -28,14 +34,27 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from asr_decoder_tpu_torch.ops.beamsearch import BeamState, FrameLog
 from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    OnlineDecoderInfo,
-                                                   host_log,
+                                                   best_path, host_log,
                                                    lattice_from_logs,
                                                    merge_logs,
                                                    nbest_from_lattice,
                                                    to_host)
+
+
+def _channel_rows(a: np.ndarray, cid: int, frames: int | None = None
+                  ) -> np.ndarray:
+    """Channel ``cid``'s rows of a batched log leaf, as a copy: of an init
+    log (``frames`` None: [stages, B, ...] for ndim ≥ 3, else [B, ...]), or
+    the first ``frames`` frames of a frame log (the same with a leading T
+    axis: [T, stages, B, ...] for ndim ≥ 4, else [T, B, ...])."""
+    if frames is None:
+        rows = a[:, cid:cid + 1] if a.ndim >= 3 else a[cid:cid + 1]
+    else:
+        rows = (a[:frames, :, cid:cid + 1] if a.ndim >= 4
+                else a[:frames, cid:cid + 1])
+    return rows.copy()
 
 
 @dataclass
@@ -49,7 +68,7 @@ class _Channel:
     pending_frames: int = 0
     eos: bool = False
     drained: bool = False          # eos fully scored
-    chunk_logs: list[FrameLog] = field(default_factory=list)   # host
+    chunk_logs: list = field(default_factory=list)     # host logs
     loglikes: list[np.ndarray] = field(default_factory=list)
     frames_decoded: int = 0
 
@@ -58,7 +77,7 @@ class _Channel:
 class ChannelSnapshot:
     """Host copy of one channel's result state; safe to read from any
     thread while the arena keeps stepping."""
-    beam: BeamState                # numpy [1, K]
+    beam: tuple                    # the search's beam lanes, numpy [1, K]
     chunk_logs: list
     loglikes: list
     frames_decoded: int
@@ -78,10 +97,9 @@ class BatchedStreamingDecoder:
         beam, init_log = info.search.init_state(num_channels)
         self._beam = beam
         # init rows are identical across the arena: keep row 0
-        self._beam_init_row = BeamState(*(a[:1].clone() for a in beam))
-        init = host_log(init_log)
-        self._init_log = FrameLog(init.prev_slot[:, :1], init.arc_id[:, :1],
-                                  init.tok_state[:1], init.tok_cost[:1])
+        self._beam_init_row = type(beam)(*(a[:1].clone() for a in beam))
+        self._init_log = type(init_log)(*(_channel_rows(a, 0)
+                                          for a in host_log(init_log)))
         self._am_state = info.init_am_state(num_channels)
         self._feat_dim = info.am_layers[0].input_dim if info.am_layers else 0
         # the previous tick's logs, on their way to the host:
@@ -98,16 +116,13 @@ class BatchedStreamingDecoder:
         self._pending = None
         if ready is not None:
             ready.synchronize()
-        log = FrameLog(*(t.numpy() for t in log))
+        log = [t.numpy() for t in log]
         ll = loglikes.numpy()
         for cid in advanced:
             ch = self._channels[cid]
             v = int(valid[cid])
-            ch.chunk_logs.append(FrameLog(
-                log.prev_slot[:v, :, cid:cid + 1].copy(),
-                log.arc_id[:v, :, cid:cid + 1].copy(),
-                log.tok_state[:v, cid:cid + 1].copy(),
-                log.tok_cost[:v, cid:cid + 1].copy()))
+            ch.chunk_logs.append(type(self._init_log)(
+                *(_channel_rows(a, cid, v) for a in log)))
             ch.loglikes.append(ll[cid, :v].copy())
             ch.frames_decoded += v
 
@@ -218,7 +233,7 @@ class BatchedStreamingDecoder:
         if dev.type == "cuda":
             ready = torch.cuda.Event()
             ready.record()
-        self._pending = (advanced, valid, FrameLog(*host[:4]), host[4], ready)
+        self._pending = (advanced, valid, host[:-1], host[-1], ready)
         return advanced
 
     def drain(self) -> None:
@@ -237,17 +252,15 @@ class BatchedStreamingDecoder:
         self._flush_logs()
         ch = self._channels[cid]
         return ChannelSnapshot(
-            beam=BeamState(*(to_host(a[cid:cid + 1]) for a in self._beam)),
+            beam=type(self._beam)(*(to_host(a[cid:cid + 1])
+                                    for a in self._beam)),
             chunk_logs=list(ch.chunk_logs),
             loglikes=list(ch.loglikes),
             frames_decoded=ch.frames_decoded)
 
     def get_best_path_from(self, snap: ChannelSnapshot) -> dict:
-        if not snap.chunk_logs:
-            return dict(arc_ids=[], cost=0.0, words=[], ilabels=[],
-                        reached_final=False)
-        return self.info.search.traceback(snap.beam, self._init_log,
-                                          snap.chunk_logs, self.info.fst)[0]
+        return best_path(self.info, snap.beam, self._init_log,
+                         snap.chunk_logs)
 
     def get_best_path(self, cid: int) -> dict:
         return self.get_best_path_from(self.snapshot(cid))

@@ -34,7 +34,8 @@ from asr_decoder_tpu.utils.config import ConfigOptions, flag
 from asr_decoder_tpu.utils.logging import get_logger
 from asr_decoder_tpu_torch.serving.batcher import (BatchedStreamingDecoder,
                                                    ChannelSnapshot)
-from asr_decoder_tpu_torch.serving.session import OnlineDecoderInfo
+from asr_decoder_tpu_torch.serving.session import (OnlineDecoderInfo,
+                                                   word_alignment)
 
 LOG = get_logger("serving")
 
@@ -270,16 +271,18 @@ class AsrServer:
             reply.results.append(NbestResult(
                 " ".join(words.words(best_words)), best.get("cost", 0.0),
                 0.0, best_words))
-        if pkg.ali_info:
-            # per-word time spans (ref AlignTime, net-data-package.h:210)
-            from asr_decoder_tpu.align.word_align import (spans_to_align,
-                                                          word_spans)
-            fst = self.info.fst
-            spans = word_spans(best.get("arc_ids", []), fst.arc_ilabel,
-                               fst.arc_olabel, 0,
-                               anchor=getattr(fst, "olabel_anchor", "start"))
-            reply.align = spans_to_align(spans, words,
-                                         self.info.seconds_per_frame)
+        if best.get("overflowed"):
+            # BigLM lm_lanes overflow dropped word candidates of this
+            # utterance: never silent (the reference never drops, ref
+            # online-decoder-mempool-base-biglm.h:316-402) — warn the
+            # client in-band and the operator in the log
+            reply.warn = True
+            LOG.warning("biglm lm_lanes overflow on this utterance: "
+                        "results may be inexact (raise lm_lanes)")
+        if pkg.ali_info and self.info.fst is not None:
+            # per-word time spans (ref AlignTime, net-data-package.h:210);
+            # a clg graph has no arc-labelled fst, so its replies carry none
+            reply.align = word_alignment(self.info, best)
             reply.ali_info = True
         if pkg.score_info:
             # (graph, acoustic) costs ride every NbestResult already

@@ -7,10 +7,12 @@ beam search → partial/final text, n-best, lattice.  Device work runs in
 fixed ``chunk_frames`` windows on ``info.device``, under
 ``torch.inference_mode()``.
 
-Only the ``hclg`` graph type is ported; ``clg``, ``biglm-hclg`` and the
-energy VAD (``use_energy_vad``) raise ``NotImplementedError`` (ROADMAP §1).
-Without the VAD there is no endpointing, so sessions have no
-``endpoint_detected`` yet.
+All three graph types are ported: ``hclg`` (``TorchBeamSearch``), ``clg``
+(``TorchClgBeamSearch``) and ``biglm-hclg`` (``TorchBigLmBeamSearch``).
+Their tracebacks and lattices take different arguments, so the helpers
+below dispatch on the graph type.  The energy VAD (``use_energy_vad``)
+raises ``NotImplementedError`` (ROADMAP §1); without it there is no
+endpointing, so sessions have no ``endpoint_detected`` yet.
 """
 
 from __future__ import annotations
@@ -32,7 +34,9 @@ from asr_decoder_tpu_torch.frontend.fbank import CmvnConfig, FbankConfig
 from asr_decoder_tpu_torch.frontend.pipeline import StreamingFrontend
 from asr_decoder_tpu_torch.models.nnet import (AmConfig, Nnet, am_forward,
                                                blank_frame_mask)
-from asr_decoder_tpu_torch.ops.beamsearch import FrameLog, TorchBeamSearch
+from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
+from asr_decoder_tpu_torch.ops.beamsearch_biglm import TorchBigLmBeamSearch
+from asr_decoder_tpu_torch.ops.beamsearch_clg import TorchClgBeamSearch
 
 
 @dataclass
@@ -103,32 +107,61 @@ class FeatureBuffer:
 class OnlineDecoderInfo:
     """Shared read-only model state, one per server process (ref:
     OnlineDecoderInfo, kaldi-online-nnet3-my-decoder.h:85-231): AM, graph,
-    search engine, symbol table, configs — all on ``device``."""
+    search engine, symbol table, configs — all on ``device``.
 
-    def __init__(self, nnet: Nnet, fst: StdFst, words: SymbolTable,
+    ``graph_type`` (OnlineDecoderConfig) picks the decoder variant (ref
+    decoder selection hclg|clg|biglm-hclg, kaldi-online-nnet3-my-
+    decoder.h:250-284):
+
+      * ``hclg``       — the pre-composed graph ``fst``;
+      * ``clg``        — the on-the-fly CLG⊗HMM composite ``clg_graph``
+        (shared ``fst/clg.py`` ClgFst); ``fst`` is None, so no word
+        alignment;
+      * ``biglm-hclg`` — ``fst`` plus ``difflm`` (``lm/device_lm.py``
+        DeviceDiffLm, its tables on ``device``): in-search
+        difference-LM rescoring.
+    """
+
+    def __init__(self, nnet: Nnet, fst: StdFst | None, words: SymbolTable,
                  ilabel2pdf: np.ndarray,
                  decoder_config: DecoderConfig | None = None,
                  online_config: OnlineDecoderConfig | None = None,
                  fbank_config: FbankConfig | None = None,
                  am_config: AmConfig | None = None,
                  cmvn_config: CmvnConfig | None = None,
-                 delta_config=None, *, device):
+                 delta_config=None, clg_graph=None, difflm=None, *, device):
         self.device = torch.device(device)
         self.config = online_config or OnlineDecoderConfig()
-        if self.config.graph_type != "hclg":
-            raise NotImplementedError(
-                f"graph_type={self.config.graph_type!r} is not ported to "
-                f"asr_decoder_tpu_torch yet (ROADMAP §1: CLG and BigLM)")
         if self.config.use_energy_vad:
             raise NotImplementedError(
                 "use_energy_vad is not ported to asr_decoder_tpu_torch yet "
                 "(ROADMAP §1: pitch, VAD and wakeup)")
-        if fst is None:
-            raise ValueError("hclg graph type needs fst")
+        self.decoder_config = decoder_config or DecoderConfig()
+        gt = self.config.graph_type
+        lanes = self.decoder_config.arc_lanes
+        if gt == "hclg":
+            if fst is None:
+                raise ValueError("hclg graph type needs fst")
+            self.search = TorchBeamSearch(
+                DeviceFst.build(fst, arc_lanes=lanes), ilabel2pdf,
+                self.decoder_config, device=self.device)
+        elif gt == "clg":
+            if clg_graph is None:
+                raise ValueError("clg graph type needs clg_graph")
+            self.search = TorchClgBeamSearch(clg_graph, ilabel2pdf,
+                                             self.decoder_config,
+                                             device=self.device)
+        elif gt == "biglm-hclg":
+            if fst is None or difflm is None:
+                raise ValueError("biglm-hclg graph type needs fst and difflm")
+            self.search = TorchBigLmBeamSearch(
+                DeviceFst.build(fst, arc_lanes=lanes), ilabel2pdf, difflm,
+                self.decoder_config, device=self.device)
+        else:
+            raise ValueError(f"unknown graph_type {gt!r}")
         self.nnet = nnet.to(self.device)
         self.fst = fst
         self.words = words
-        self.decoder_config = decoder_config or DecoderConfig()
         self.fbank_config = fbank_config or FbankConfig()
         self.am_config = am_config or AmConfig()
         self.cmvn_config = cmvn_config  # None = no live CMVN
@@ -137,9 +170,6 @@ class OnlineDecoderInfo:
             assert self.config.chunk_frames % (self.am_config.skip + 1) == 0, \
                 "skip_copy needs chunk_frames divisible by skip+1 (chunks " \
                 "must stay phase-aligned)"
-        dev = DeviceFst.build(fst, arc_lanes=self.decoder_config.arc_lanes)
-        self.search = TorchBeamSearch(dev, ilabel2pdf, self.decoder_config,
-                                      device=self.device)
         self.ilabel2pdf = np.asarray(ilabel2pdf, np.int64)
         # a leading splice layer is applied by the FeatureBuffer
         layers = list(self.nnet.layers)
@@ -192,6 +222,32 @@ class OnlineDecoderInfo:
         return loglikes, am_state, mask
 
 
+def best_path(info: OnlineDecoderInfo, beam, init_log, chunk_logs) -> dict:
+    """Best path of one utterance from host logs: the CLG traceback takes
+    no graph (and gives no arc ids), the others read words off ``fst``."""
+    if not chunk_logs:
+        return dict(arc_ids=[], cost=0.0, words=[], ilabels=[],
+                    reached_final=False)
+    if info.config.graph_type == "clg":
+        return info.search.traceback(beam, init_log, chunk_logs)[0]
+    return info.search.traceback(beam, init_log, chunk_logs, info.fst)[0]
+
+
+def word_alignment(info: OnlineDecoderInfo, best: dict,
+                   frame_offset: int = 0) -> list[tuple[str, float, float]]:
+    """Per-word time spans [(word, begin_s, end_s)] of a best path (ref:
+    AlignTime, net-data-package.h:210); needs the arc-labelled ``fst``."""
+    from asr_decoder_tpu.align.word_align import spans_to_align, word_spans
+    fst = info.fst
+    if fst is None:
+        raise RuntimeError("word alignment needs an arc-labeled StdFst "
+                           "graph (hclg/biglm-hclg)")
+    spans = word_spans(best.get("arc_ids", []), fst.arc_ilabel,
+                       fst.arc_olabel, frame_offset,
+                       anchor=getattr(fst, "olabel_anchor", "start"))
+    return spans_to_align(spans, info.words, info.seconds_per_frame)
+
+
 def lattice_from_logs(info: OnlineDecoderInfo, init_log, logs, lls,
                       determinize: bool):
     """Raw (or determinized) lattice from host logs of one utterance."""
@@ -201,8 +257,13 @@ def lattice_from_logs(info: OnlineDecoderInfo, init_log, logs, lls,
             "lattice output is unsupported with skip_blank_frames (CTC "
             "blank-skip is a best-path fast path; the reference likewise "
             "uses SkipBlockFrame only in best-path CTC decoders)")
-    lat = info.search.get_lattices(init_log, logs, lls, info.fst,
-                                   frame_mask=np.ones(lls.shape[:2], bool))[0]
+    mask = np.ones(lls.shape[:2], bool)
+    if info.config.graph_type == "clg":
+        lat = info.search.get_lattices(init_log, logs, lls,
+                                       frame_mask=mask)[0]
+    else:   # hclg / biglm-hclg share the StdFst-keyed signature
+        lat = info.search.get_lattices(init_log, logs, lls, info.fst,
+                                       frame_mask=mask)[0]
     if lat is not None and determinize and lat.num_states:
         try:
             lat = determinize_lattice(lat)
@@ -222,12 +283,14 @@ def nbest_from_lattice(info: OnlineDecoderInfo, lat, n: int) -> list[dict]:
     return out
 
 
-def merge_logs(chunk_logs: list[FrameLog]) -> FrameLog | None:
-    """Concatenate host per-chunk logs along the frame axis."""
+def merge_logs(chunk_logs: list):
+    """Concatenate host per-chunk logs along the frame axis (every leaf of
+    every search's log has the frame axis first)."""
     if not chunk_logs:
         return None
-    return FrameLog(*(np.concatenate([c[i] for c in chunk_logs], axis=0)
-                      for i in range(len(FrameLog._fields))))
+    return type(chunk_logs[0])(*(
+        np.concatenate([c[i] for c in chunk_logs], axis=0)
+        for i in range(len(chunk_logs[0]))))
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
@@ -235,8 +298,9 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).numpy()
 
 
-def host_log(log: FrameLog) -> FrameLog:
-    return FrameLog(*(to_host(t) for t in log))
+def host_log(log):
+    """A host copy of a search's log (a NamedTuple of tensors)."""
+    return type(log)(*(to_host(t) for t in log))
 
 
 class OnlineDecoderSession:
@@ -266,7 +330,7 @@ class OnlineDecoderSession:
         beam, init_log = self.info.search.init_state(1)
         self._beam = beam
         self._init_log = host_log(init_log)
-        self._chunk_logs: list[FrameLog] = []
+        self._chunk_logs: list = []
         self._loglikes: list[np.ndarray] = []
         self._pending: list[np.ndarray] = []
         self.num_frames_decoded = 0
@@ -323,11 +387,8 @@ class OnlineDecoderSession:
     def get_best_path(self) -> dict:
         """Best path so far (partial before EOS) — words, ilabels, cost
         (ref: GetBestPath/GetBestPathTxt)."""
-        if not self._chunk_logs:
-            return dict(arc_ids=[], cost=0.0, words=[], ilabels=[],
-                        reached_final=False)
-        return self.info.search.traceback(
-            self._beam, self._init_log, self._chunk_logs, self.info.fst)[0]
+        return best_path(self.info, self._beam, self._init_log,
+                         self._chunk_logs)
 
     def get_best_path_txt(self) -> str:
         res = self.get_best_path()
@@ -336,16 +397,8 @@ class OnlineDecoderSession:
     def get_word_alignment(self, frame_offset: int = 0
                            ) -> list[tuple[str, float, float]]:
         """Per-word time spans [(word, begin_s, end_s)] of the best path
-        (ref: AlignTime, net-data-package.h:210)."""
-        from asr_decoder_tpu.align.word_align import (spans_to_align,
-                                                      word_spans)
-        fst = self.info.fst
-        res = self.get_best_path()
-        spans = word_spans(res.get("arc_ids", []), fst.arc_ilabel,
-                           fst.arc_olabel, frame_offset,
-                           anchor=getattr(fst, "olabel_anchor", "start"))
-        return spans_to_align(spans, self.info.words,
-                              self.info.seconds_per_frame)
+        (ref: AlignTime, net-data-package.h:210); raises for ``clg``."""
+        return word_alignment(self.info, self.get_best_path(), frame_offset)
 
     def get_lattice(self, determinize: bool = True):
         """Raw (or determinized) lattice of the utterance so far

@@ -27,15 +27,25 @@ sources in this checkout, then:
   6. serves 16 concurrent 4-second utterances through the port's
      ``AsrServer`` built by its CLI loader, and checks every final reply
      against an in-process ``BatchedStreamingDecoder`` on the same waves,
-     and that both kernels launched during the serve run.
+     and that both kernels launched during the serve run;
+  7. graph types: the ``clg`` search (a 200k-state CLG layer over 2000
+     three-state HMMs) and the ``biglm-hclg`` search (the 200k-state graph
+     with the difference of a 20k-bigram and a 200k-bigram + 100k-trigram
+     LM, ``lm_lanes`` 1024, so the compaction runs): the gather kernel
+     bit-exact against its plain version at their table shapes, fixed
+     loglikes decoded on the card and on the CPU with bit-identical logs,
+     LM lanes, overflow flags, words and costs, then 8 concurrent 4-second
+     utterances served (``clg`` through the CLI loader's
+     ``--hmmfst-file``), every reply equal to the in-process batcher, the
+     gather kernel launching in each run.
 
 Any failed check raises, so the script exits non-zero; it never falls back
 to the CPU.  Its last two lines are the kernels' JSON record (the five TPU
-kernels: the gather and the fetch with their serve-run launches, the three
-microbench row gathers with their tool-path launches) and
-``{"ok": true, "device": {...}}``.  It imports no JAX: of ``asr_decoder_tpu``
-it uses only the numpy host modules the port shares, which it checks at
-the end of the run.
+kernels: the gather with its launches in the serve and graph-types runs,
+the fetch with its serve-run launches, the three microbench row gathers
+with their tool-path launches) and ``{"ok": true, "device": {...}}``.  It
+imports no JAX: of ``asr_decoder_tpu`` it uses only the numpy host modules
+the port shares, which it checks at the end of the run.
 """
 
 from __future__ import annotations
@@ -70,9 +80,19 @@ ROW_LIVE = (131_072, 32_768, 8_192)
 # Nothing else of that package, and nothing of jax, may load in this run.
 SHARED_HOST = ("fst", "align", "decoder.config", "decoder.gold",
                "decoder.raw_lattice", "serving.protocol", "serving.client",
-               "frontend.audio", "models.transition", "utils.config",
-               "utils.logging", "utils.timer", "utils.wer")
-SHARED_INITS = ("", "decoder", "serving", "frontend", "models", "utils")
+               "frontend.audio", "models.transition", "lm.arpa",
+               "lm.synth_arpa", "utils.config", "utils.logging",
+               "utils.timer", "utils.wer")
+SHARED_INITS = ("", "decoder", "serving", "frontend", "models", "lm",
+                "utils")
+# phase 7, the graph types: the CLG layer and its HMMs, the BigLM's LMs
+CLG_HMMS = 2000
+LM_VOCAB = 5000
+LM1 = dict(vocab_size=LM_VOCAB, n_bigram=20_000, seed=11)
+LM2 = dict(vocab_size=LM_VOCAB, n_bigram=200_000, n_trigram=100_000,
+           seed=12)
+GT_UTTS = 8
+PROFILE_FRAMES = 4                 # frames profiled for kernels/frame
 
 
 def check(ok: bool, what: str) -> None:
@@ -115,33 +135,44 @@ def time_ms(fn, calls: int = 20, replays: int = 20) -> tuple[float, float]:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
+def gather_case(gen, dev, B: int, V: int, N: int, dtype,
+                label: str = "") -> tuple[float, float, float, str]:
+    """The gather kernel against ``gather_plain`` on one random [B, V]
+    table and [B, N] index set, bit-exact, and both timed: (max abs err,
+    kernel device ms, plain device ms, report row)."""
+    from asr_decoder_tpu_torch.ops import gather
+    if dtype == torch.float32:
+        table = torch.randn((B, V), generator=gen, device=dev)
+    else:
+        table = torch.randint(-2**31, 2**31 - 1, (B, V), generator=gen,
+                              device=dev, dtype=torch.int32)
+    idx = torch.randint(0, V, (B, N), generator=gen, device=dev,
+                        dtype=torch.int32)
+    got = gather.batched_table_gather(table, idx)
+    want = gather.gather_plain(table, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"gather [{B},{V}]x[{B},{N}] {dtype} bit-exact")
+    err = (got.double() - want.double()).abs().max().item()
+    ms, wms = time_ms(lambda: gather.batched_table_gather(table, idx))
+    pms, pwms = time_ms(lambda: gather.gather_plain(table, idx))
+    return err, ms, pms, (
+        f"gather  [{B},{V}]x[{B},{N}] {str(dtype)[6:]}{label}: device "
+        f"kernel {ms:.4f} ms plain {pms:.4f} ms; per eager call kernel "
+        f"{wms:.4f} ms plain {pwms:.4f} ms")
+
+
 def phase_kernels(dev) -> dict:
-    from asr_decoder_tpu_torch.ops import fetch, gather
+    from asr_decoder_tpu_torch.ops import fetch
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     err = 0.0
     rows = []
     for V, N in GATHER_SHAPES:
         for dtype in (torch.float32, torch.int32):
-            if dtype == torch.float32:
-                table = torch.randn((32, V), generator=gen, device=dev)
-            else:
-                table = torch.randint(-2**31, 2**31 - 1, (32, V),
-                                      generator=gen, device=dev,
-                                      dtype=torch.int32)
-            idx = torch.randint(0, V, (32, N), generator=gen, device=dev,
-                                dtype=torch.int32)
-            got = gather.batched_table_gather(table, idx)
-            want = gather.gather_plain(table, idx)
-            torch.cuda.synchronize()
-            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-                  f"gather [32,{V}]x[32,{N}] {dtype} bit-exact")
-            err = max(err, (got.double() - want.double()).abs().max().item())
-            ms, wms = time_ms(lambda: gather.batched_table_gather(table, idx))
-            pms, pwms = time_ms(lambda: gather.gather_plain(table, idx))
-            rows.append(f"gather  [32,{V}]x[32,{N}] {str(dtype)[6:]}: device "
-                        f"kernel {ms:.4f} ms plain {pms:.4f} ms; per eager "
-                        f"call kernel {wms:.4f} ms plain {pwms:.4f} ms")
+            e, ms, pms, row = gather_case(gen, dev, 32, V, N, dtype)
+            err = max(err, e)
+            rows.append(row)
             if (V, N) == (2048, 4096) and dtype == torch.float32:
                 out["gather"] = dict(ms=ms, plain_ms=pms)
     out["gather"]["max_abs_err"] = err
@@ -272,58 +303,102 @@ def make_graph():
     return fst, i2p
 
 
+def fixed_loglikes(frames: int, seed: int = 1) -> np.ndarray:
+    """Log-softmax rows f32[BATCH, frames, NUM_PDFS] from a seed."""
+    rng = np.random.default_rng(seed)
+    sc = rng.standard_normal((BATCH, frames, NUM_PDFS)).astype(np.float32) * 2
+    return sc - np.log(np.exp(sc).sum(-1, keepdims=True))
+
+
+def kernels_per_frame(search, ll: torch.Tensor) -> tuple[float, float]:
+    """(CUDA kernels a frame, memsets and copies included; their device ms
+    a frame), from ``torch.profiler`` over ``PROFILE_FRAMES`` frames of one
+    advance."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from asr_decoder_tpu_torch.tools.perf.profile_production import \
+        _device_us
+    state, _ = search.init_state(ll.shape[0])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        search.advance(state, ll[:, :PROFILE_FRAMES])
+        torch.cuda.synchronize()
+    # the search's named ranges are spans with gaps: leave them out
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    return (sum(e.count for e in ops) / PROFILE_FRAMES,
+            sum(_device_us(e) for e in ops) / 1e3 / PROFILE_FRAMES)
+
+
+def card_vs_cpu(dev, label: str, make, ll: np.ndarray, traceback) -> tuple:
+    """``make(device)`` builds one search on the card and one on the CPU;
+    both decode ``ll``: every leaf of the state and logs bit-identical
+    (every search op is an exact int32 op, fp32 add/compare, gather or
+    sort), and ``traceback(search, state, init_log, logs)`` equal.  Returns
+    (card search, card run, card tracebacks, record: card kernel launches,
+    ms/frame on each device, card kernels/frame)."""
+    from asr_decoder_tpu_torch.ops import fetch, gather
+    frames = ll.shape[1]
+    runs, rec = [], {}
+    for d in (dev, torch.device("cpu")):
+        search = make(d)
+        lld = torch.from_numpy(ll).to(d)
+        search.decode(lld[:, :4])                       # warm-up
+        gather.launches = fetch.launches = 0
+        t0 = time.perf_counter()
+        out = search.decode(lld)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if d == dev:
+            rec["launches"] = {"gather": gather.launches,
+                               "fetch": fetch.launches}
+            rec["kernels_per_frame"], rec["device_ms_per_frame"] = \
+                kernels_per_frame(search, lld)
+        rec["card_ms_per_frame" if d == dev else "cpu_ms_per_frame"] = \
+            1e3 * dt / frames
+        runs.append((search, out))
+        print(f"{label} {d.type}: {BATCH}x{frames} frames in {dt:.3f} s = "
+              f"{1e3 * dt / frames:.3f} ms/frame")
+    (g, gout), (c, cout) = runs
+    for go, co in zip(gout, cout):
+        for gt, ct in zip(go, co):
+            a, b = gt.cpu(), ct
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            check(torch.equal(a, b), f"{label} logs bit-identical card vs "
+                                     f"CPU")
+    gres = traceback(g, *gout)
+    check(gres == traceback(c, *cout),
+          f"{label} words/arc ids/costs card vs CPU")
+    check(all(np.isfinite(r["cost"]) and r["ilabels"] for r in gres),
+          f"{label}: every utterance has a finite best path")
+    return g, gout, gres, rec
+
+
 def phase_search(dev, fst, i2p, frames: int = FRAMES, **engine) -> dict:
     """One search config (``SEARCH`` with ``engine`` over it) on the card
     and on the CPU, bit-identical; returns the kernel launches of the card
     run and its ms/frame on both devices."""
     from asr_decoder_tpu.decoder.config import DecoderConfig
     from asr_decoder_tpu.fst.device_fst import DeviceFst
-    from asr_decoder_tpu_torch.ops import fetch, gather
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     dfst = DeviceFst.build(fst, arc_lanes=ARC_LANES)
     cfg = DecoderConfig(**{**SEARCH, **engine})
-    rng = np.random.default_rng(1)
-    sc = rng.standard_normal((BATCH, frames, NUM_PDFS)).astype(np.float32) * 2
-    ll = sc - np.log(np.exp(sc).sum(-1, keepdims=True))
-    runs, rec = [], {}
-    for d in (dev, torch.device("cpu")):
-        search = TorchBeamSearch(dfst, i2p, cfg, device=d)
-        lld = torch.from_numpy(ll).to(d)
-        search.decode(lld[:, :4])                       # warm-up
-        gather.launches = fetch.launches = 0
-        t0 = time.perf_counter()
-        state, init_log, logs = search.decode(lld)
-        if d.type == "cuda":
-            torch.cuda.synchronize()
-        if d == dev:
-            rec["launches"] = {"gather": gather.launches,
-                               "fetch": fetch.launches}
-        dt = time.perf_counter() - t0
-        rec[f"{d.type}_ms_per_frame"] = 1e3 * dt / frames
-        runs.append((search, state, init_log, logs))
-        what = (f"v3, {search.lanes}-lane records" if search.lanes
-                else f"v2 {search.mode}, {search.num_stages} stages")
-        print(f"search {d.type}: {BATCH}x{frames} frames over "
-              f"{dfst.num_states} states ({what}) in {dt:.3f} s = "
-              f"{1e3 * dt / frames:.3f} ms/frame")
-    (g, *gout), (c, *cout) = runs
-    for go, co in zip(gout, cout):
-        for gt, ct in zip(go, co):
-            a, b = gt.cpu(), ct
-            if a.dtype == torch.float32:
-                a, b = a.view(torch.int32), b.view(torch.int32)
-            check(torch.equal(a, b), "search logs bit-identical card vs CPU")
-    gres = g.traceback(*gout, fst)
-    cres = c.traceback(*cout, fst)
-    check(gres == cres, "search words/arc ids/costs card vs CPU")
+    g, gout, gres, rec = card_vs_cpu(
+        dev, "search", lambda d: TorchBeamSearch(dfst, i2p, cfg, device=d),
+        fixed_loglikes(frames), lambda s, *out: s.traceback(*out, fst))
     live = (gout[0].tok_state >= 0).sum(1).float().mean().item()
-    check(all(np.isfinite(r["cost"]) and r["arc_ids"] for r in gres),
-          "every utterance has a finite best path")
-    print(f"search card == CPU ({g.relax_impl}, {g.mode}): logs "
-          f"bit-identical, words and costs equal for {len(gres)} utterances "
-          f"(mean live tokens at the end {live:.1f}, words in utt 0: "
-          f"{len(gres[0]['words'])}); card kernel launches "
-          f"{rec['launches']}")
+    what = (f"v3, {g.lanes}-lane records" if g.lanes
+            else f"v2 {g.mode}, {g.num_stages} stages")
+    print(f"search card == CPU ({g.relax_impl}, {g.mode}): {what} over "
+          f"{dfst.num_states} states; logs bit-identical, words and costs "
+          f"equal for {len(gres)} utterances (mean live tokens at the end "
+          f"{live:.1f}, words in utt 0: {len(gres[0]['words'])}); card "
+          f"kernel launches {rec['launches']}, "
+          f"{rec['kernels_per_frame']:.0f} kernels/frame "
+          f"({rec['device_ms_per_frame']:.3f} device ms/frame)")
     return rec
 
 
@@ -360,41 +435,23 @@ def phase_am(dev, nnet) -> None:
 # phase 6: serve through the port's server
 # ----------------------------------------------------------------------
 
-def phase_serve(dev, nnet, fst) -> dict:
-    from asr_decoder_tpu.decoder.config import DecoderConfig
-    from asr_decoder_tpu.fst.symbol import SymbolTable
+def serve_check(info, utts: int, label: str) -> dict:
+    """Serve ``utts`` concurrent 4-s utterances through ``AsrServer`` over
+    ``info``; every final reply must equal an in-process
+    ``BatchedStreamingDecoder`` on the same waves and chunks.  Returns the
+    kernel launches of the serve run."""
     from asr_decoder_tpu.serving.client import AsyncAsrClient
     from asr_decoder_tpu.serving.protocol import EndFlag
-    from asr_decoder_tpu_torch.cli._model import build_info
-    from asr_decoder_tpu_torch.frontend.fbank import FbankConfig
-    from asr_decoder_tpu_torch.models.nnet import AmConfig
     from asr_decoder_tpu_torch.ops import fetch, gather
     from asr_decoder_tpu_torch.serving.batcher import BatchedStreamingDecoder
     from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
-    from asr_decoder_tpu_torch.serving.session import OnlineDecoderConfig
-
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = [str(Path(tmp) / n) for n in ("am.nnet", "graph.fst",
-                                              "words.txt")]
-        nnet.write_binary(paths[0])
-        fst.write_binary(paths[1])
-        words = SymbolTable()
-        words.add("<eps>", 0)
-        for w in range(1, int(fst.arc_olabel.max()) + 1):
-            words.add(f"w{w}", w)
-        words.write_text(paths[2])
-        info = build_info(
-            *paths, DecoderConfig(**SEARCH),
-            OnlineDecoderConfig(ctc_blank_shift=True),
-            FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP),
-            {"trans-model": ""}, device=dev)
     rng = np.random.default_rng(3)
     n = int(16000 * UTT_SECONDS)
     waves = [(rng.standard_normal(n) * 4000).astype(np.int16)
-             for _ in range(UTTS)]
+             for _ in range(utts)]
 
     async def serve():
-        server = AsrServer(info, SocketConfig(port=0, num_channels=UTTS))
+        server = AsrServer(info, SocketConfig(port=0, num_channels=utts))
         host, port = await server.start()
         try:
             async def one(w):
@@ -415,7 +472,7 @@ def phase_serve(dev, nnet, fst) -> dict:
     launches = {"gather": gather.launches, "fetch": fetch.launches}
 
     # reference: the same waves, chunks and arena width, in process
-    eng = BatchedStreamingDecoder(info, UTTS)
+    eng = BatchedStreamingDecoder(info, utts)
     cids = [eng.acquire() for _ in waves]
     for off in range(0, n, CHUNK):
         for cid, w in zip(cids, waves):
@@ -425,20 +482,210 @@ def phase_serve(dev, nnet, fst) -> dict:
     want = [eng.get_best_path(c)["words"] for c in cids]
     answered = sum(r.end_flag == EndFlag.END and bool(r.results)
                    for r in replies)
-    check(answered == UTTS, f"{answered} of {UTTS} requests answered")
+    check(answered == utts, f"{label}: {answered} of {utts} requests "
+                            f"answered")
     same = sum(r.results[0].words == w for r, w in zip(replies, want))
-    check(same == UTTS, f"{same} of {UTTS} served results equal the "
-                        f"in-process batcher")
-    for k, v in launches.items():
-        check(v > 0, f"{k} kernel launched during the serve run ({v})")
-    audio = UTTS * UTT_SECONDS
-    print(f"serve: {UTTS} concurrent {UTT_SECONDS:g}-s utterances = "
+    check(same == utts, f"{label}: {same} of {utts} served results equal "
+                        f"the in-process batcher")
+    check(launches["gather"] > 0,
+          f"{label}: gather kernel launched during the serve run")
+    audio = utts * UTT_SECONDS
+    print(f"{label}: {utts} concurrent {UTT_SECONDS:g}-s utterances = "
           f"{audio:g} audio-s in {wall:.3f} s wall ({audio / wall:.2f} "
           f"audio-s/s incl. first-use warm-up), {server.dispatches} "
           f"dispatches, {server.chunks_decoded} channel-chunks; "
-          f"{answered}/{UTTS} answered, {same}/{UTTS} equal the batcher; "
-          f"kernel launches {launches}; words in utt 0: {len(want[0])}")
+          f"{answered}/{utts} answered, {same}/{utts} equal the batcher; "
+          f"warn set on {sum(r.warn for r in replies)}; kernel launches "
+          f"{launches}; words in utt 0: {len(want[0])}")
     return launches
+
+
+def make_words(num_words: int):
+    """The symbol table <eps> = 0, then w<i> = i."""
+    from asr_decoder_tpu.fst.symbol import SymbolTable
+    words = SymbolTable()
+    words.add("<eps>", 0)
+    for w in range(1, num_words + 1):
+        words.add(f"w{w}", w)
+    return words
+
+
+def phase_serve(dev, nnet, fst) -> dict:
+    from asr_decoder_tpu.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.cli._model import build_info
+    from asr_decoder_tpu_torch.frontend.fbank import FbankConfig
+    from asr_decoder_tpu_torch.models.nnet import AmConfig
+    from asr_decoder_tpu_torch.serving.session import OnlineDecoderConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [str(Path(tmp) / n) for n in ("am.nnet", "graph.fst",
+                                              "words.txt")]
+        nnet.write_binary(paths[0])
+        fst.write_binary(paths[1])
+        make_words(int(fst.arc_olabel.max())).write_text(paths[2])
+        info = build_info(
+            *paths, DecoderConfig(**SEARCH),
+            OnlineDecoderConfig(ctc_blank_shift=True),
+            FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP),
+            {"trans-model": ""}, device=dev)
+    launches = serve_check(info, UTTS, "serve")
+    check(launches["fetch"] > 0, "fetch kernel launched during the serve "
+                                 "run")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 7: the clg and biglm-hclg graph types
+# ----------------------------------------------------------------------
+
+def make_hmms(rng, n: int):
+    """[None, hmm_1..hmm_n]: three-state linear-chain HMMs (a self-loop and
+    a forward arc a state, an ε exit from the last), ilabels in
+    [1, NUM_PDFS] (scored through the CTC map of ``make_graph``)."""
+    from asr_decoder_tpu.fst.fst import StdFst
+    src = np.array([0, 0, 1, 1, 2, 2])
+    dst = np.array([0, 1, 1, 2, 2, 2], np.int32)
+    hmms = [None]
+    for _ in range(n):
+        il = rng.integers(1, NUM_PDFS + 1, 6).astype(np.int32)
+        il[5] = 0                                   # exit ε
+        hmms.append(StdFst.from_arcs(
+            3, 0, 2, src, il, np.zeros(6, np.int32),
+            rng.random(6).astype(np.float32), dst))
+    return hmms
+
+
+def make_difflm(device):
+    """The BigLM difference G2 − G1 over two synthetic ARPA LMs whose word
+    w<i> is id i — the graph's olabel i; <s>, </s> get ids above it."""
+    from asr_decoder_tpu.lm.arpa import parse_arpa
+    from asr_decoder_tpu.lm.synth_arpa import synth_arpa_text
+    from asr_decoder_tpu_torch.lm.device_lm import DeviceDiffLm
+    word2id = {f"w{i}": i for i in range(1, LM_VOCAB + 1)}
+    word2id.update({"<s>": LM_VOCAB + 1, "</s>": LM_VOCAB + 2})
+    fsas = [parse_arpa(synth_arpa_text(**kw), word2id=word2id)
+            for kw in (LM1, LM2)]
+    return fsas, lambda d: DeviceDiffLm.build(*fsas, device=d)
+
+
+def phase_graph_types(dev, nnet, fst, i2p) -> dict:
+    """Each graph type: the gather kernel at its table shapes, the search
+    card against CPU, then a served run.  Returns the gather launches of
+    the card searches and serve runs, and the gather's worst error."""
+    from asr_decoder_tpu.decoder.config import DecoderConfig
+    from asr_decoder_tpu.fst.clg import write_hmm_bundle
+    from asr_decoder_tpu.fst.device_fst import DeviceFst
+    from asr_decoder_tpu.fst.synthetic import random_hclg
+    from asr_decoder_tpu_torch.cli._model import build_info
+    from asr_decoder_tpu_torch.frontend.fbank import FbankConfig
+    from asr_decoder_tpu_torch.models.nnet import AmConfig
+    from asr_decoder_tpu_torch.ops.beamsearch_biglm import \
+        TorchBigLmBeamSearch
+    from asr_decoder_tpu_torch.ops.beamsearch_clg import TorchClgBeamSearch
+    from asr_decoder_tpu_torch.serving.session import (OnlineDecoderConfig,
+                                                       OnlineDecoderInfo)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cfg = DecoderConfig(**SEARCH)
+    K = cfg.beam_width
+    ll = fixed_loglikes(FRAMES, seed=7)
+    am_cfg = (FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP))
+    total = {"gather": 0, "max_abs_err": 0.0}
+
+    def gather_rows(cases):
+        for V, N, what in cases:
+            for dtype in (torch.float32, torch.int32):
+                e, _, _, row = gather_case(gen, dev, BATCH, V, N, dtype,
+                                           f" ({what})")
+                total["max_abs_err"] = max(total["max_abs_err"], e)
+                print(row)
+
+    # --- clg: the CLI loader with --hmmfst-file -------------------------
+    t0 = time.perf_counter()
+    clg = random_hclg(np.random.default_rng(5), num_states=GRAPH_STATES,
+                      num_ilabels=CLG_HMMS)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {n: str(Path(tmp) / n) for n in ("am", "clg", "hmm",
+                                                 "words")}
+        nnet.write_binary(paths["am"])
+        clg.write_binary(paths["clg"])
+        write_hmm_bundle(paths["hmm"], make_hmms(np.random.default_rng(8),
+                                                 CLG_HMMS))
+        make_words(int(clg.arc_olabel.max())).write_text(paths["words"])
+        info = build_info(
+            paths["am"], paths["clg"], paths["words"], cfg,
+            OnlineDecoderConfig(graph_type="clg", ctc_blank_shift=True),
+            *am_cfg, {"trans-model": "", "hmmfst-file": paths["hmm"]},
+            device=dev)
+    g = info.search.g
+    Ae = info.search._cfg["Ae"]
+    # the CPU search reuses the card's ε depth (ClgFst.eps_depth walks the
+    # whole graph in Python)
+    cpu_cfg = DecoderConfig(**SEARCH, eps_iters=info.search._cfg["E"])
+    print(f"clg: {g.clg.num_states} CLG states, {g.clg.num_arcs} arcs, "
+          f"{CLG_HMMS} HMMs, {info.search.num_stages - 1} ε sweeps, Ae = "
+          f"{Ae}; built in {time.perf_counter() - t0:.1f} s")
+    gather_rows([(K * Ae + 2 * K, K, "clg ε table")])
+    _, gout, gres, rec = card_vs_cpu(
+        dev, "clg search",
+        lambda d: info.search if d == dev else TorchClgBeamSearch(
+            g, i2p, cpu_cfg, device=d),
+        ll, lambda s, *out: s.traceback(*out))
+    check(rec["launches"]["gather"] > 0, "gather kernel launched by clg")
+    print(f"graph types: clg card == CPU: logs bit-identical, words and "
+          f"costs equal for {len(gres)} utterances (reached final: "
+          f"{sum(r['reached_final'] for r in gres)}, words in utt 0: "
+          f"{len(gres[0]['words'])}); {rec['card_ms_per_frame']:.3f} vs "
+          f"{rec['cpu_ms_per_frame']:.3f} ms/frame card vs CPU, "
+          f"{rec['kernels_per_frame']:.0f} kernels/frame "
+          f"({rec['device_ms_per_frame']:.3f} device ms/frame); card kernel "
+          f"launches {rec['launches']}")
+    total["gather"] += rec["launches"]["gather"]
+    total["clg"] = rec
+    total["gather"] += serve_check(info, GT_UTTS, "serve clg")["gather"]
+    del info
+
+    # --- biglm-hclg: an info made in process with its DeviceDiffLm ------
+    t0 = time.perf_counter()
+    fsas, difflm = make_difflm(dev)
+    dfst = DeviceFst.build(fst, arc_lanes=ARC_LANES)
+    lm = difflm(dev)
+    info = OnlineDecoderInfo(
+        nnet, fst, make_words(int(fst.arc_olabel.max())), i2p, cfg,
+        OnlineDecoderConfig(graph_type="biglm-hclg", ctc_blank_shift=True),
+        *am_cfg, difflm=lm, device=dev)
+    s = info.search
+    A, L = s._cfg["A"], int(s.graph.eps_rec.shape[1]) // 4
+    print(f"biglm: G1 {fsas[0].num_states} states / {fsas[0].num_arcs} "
+          f"arcs (levels {lm.lm1.levels}, max probes {lm.lm1.max_probes}), "
+          f"G2 {fsas[1].num_states} / {fsas[1].num_arcs} (levels "
+          f"{lm.lm2.levels}, max probes {lm.lm2.max_probes}); lm_lanes "
+          f"{cfg.lm_lanes} of K·A = {K * A} (safe bound "
+          f"{s.lm_lanes_bound}); {s.num_stages - 1} ε sweeps; built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gather_rows([(K * A, K * A, "biglm compaction"),
+                 (K * L + K, K, "biglm ε table")])
+    _, gout, gres, rec = card_vs_cpu(
+        dev, "biglm search",
+        lambda d: s if d == dev else TorchBigLmBeamSearch(
+            dfst, i2p, difflm(d), cfg, device=d),
+        ll, lambda s_, *out: s_.traceback(*out, fst))
+    check(rec["launches"]["gather"] > 0, "gather kernel launched by biglm")
+    ovf = gout[2].overflow
+    print(f"graph types: biglm card == CPU: logs, LM lanes and overflow "
+          f"flags bit-identical, words and costs equal for {len(gres)} "
+          f"utterances (reached final: "
+          f"{sum(r['reached_final'] for r in gres)}, words in utt 0: "
+          f"{len(gres[0]['words'])}); {rec['card_ms_per_frame']:.3f} vs "
+          f"{rec['cpu_ms_per_frame']:.3f} ms/frame card vs CPU, "
+          f"{rec['kernels_per_frame']:.0f} kernels/frame "
+          f"({rec['device_ms_per_frame']:.3f} device ms/frame); overflow in "
+          f"{int(ovf.sum())} of {ovf.numel()} utterance-frames, "
+          f"{sum(r['overflowed'] for r in gres)} utterances overflowed; "
+          f"card kernel launches {rec['launches']}")
+    total["gather"] += rec["launches"]["gather"]
+    total["biglm"] = rec
+    total["gather"] += serve_check(info, GT_UTTS, "serve biglm")["gather"]
+    return total
 
 
 def main() -> int:
@@ -475,12 +722,19 @@ def main() -> int:
     print(f"phase am done at {time.perf_counter() - t0:.1f} s")
     launches = phase_serve(dev, nnet, fst)
     print(f"phase serve done at {time.perf_counter() - t0:.1f} s")
+    graph_types = phase_graph_types(dev, nnet, fst, i2p)
+    print(f"phase graph types done at {time.perf_counter() - t0:.1f} s")
     check_imports()
+    # the gather's main-path launches: the serve run and the graph types'
+    # card searches and serve runs (each counted from 0 just before)
+    kernels["gather"]["max_abs_err"] = max(kernels["gather"]["max_abs_err"],
+                                           graph_types["max_abs_err"])
     record = {"kernels": [
         dict(name="batched_table_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/gather.cu",
              replaces="asr_decoder_tpu/ops/gather.py:42",
-             launches=launches["gather"], **kernels["gather"]),
+             launches=launches["gather"] + graph_types["gather"],
+             **kernels["gather"]),
         dict(name="fetch_records", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="asr_decoder_tpu/ops/fetch.py:64",

@@ -67,3 +67,22 @@ def test_gather_kernel_matches_plain(cuda, V, N, dtype):
     assert G.launches == before + 1
     assert got.dtype == t.dtype and got.shape == (32, N)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("V,N", [(512 * 8 + 2 * 512, 512), (512 * 8, 4096),
+                                 (512 * 4 + 512, 512)])
+def test_gather_kernel_at_graph_type_shapes(cuda, V, N, dtype):
+    """The shapes the clg and biglm-hclg searches give the kernel at B=16,
+    K=512: the CLG ε-stage table [B, K·Ae + 2K] (Ae = 8) read at the K
+    winners, the BigLM emit-stage compaction [B, K·A] (A = 8) permuted
+    whole, and a BigLM ε-stage table [B, K·L + K] (L = 4)."""
+    table, idx = _inputs(16, V, N, dtype, seed=V + 7 * N)
+    t, i = torch.from_numpy(table).to(cuda), torch.from_numpy(idx).to(cuda)
+    before = G.launches
+    got = G.batched_table_gather(t, i)
+    want = G.gather_plain(t, i)
+    torch.cuda.synchronize()
+    assert G.launches == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -24,6 +24,7 @@ from asr_decoder_tpu.serving.protocol import EndFlag  # noqa: E402
 from asr_decoder_tpu.serving.session import \
     OnlineDecoderSession as JaxSession  # noqa: E402
 from asr_decoder_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
+from asr_decoder_tpu_torch.lm.device_lm import DeviceDiffLm  # noqa: E402
 from asr_decoder_tpu_torch.models.nnet import (AmConfig,  # noqa: E402
                                                from_numpy_layers)
 from asr_decoder_tpu_torch.serving.batcher import \
@@ -31,22 +32,32 @@ from asr_decoder_tpu_torch.serving.batcher import \
 from asr_decoder_tpu_torch.serving.server import (AsrServer,  # noqa: E402
                                                   SocketConfig)
 from asr_decoder_tpu_torch.serving.session import (  # noqa: E402
-    OnlineDecoderConfig, OnlineDecoderInfo, OnlineDecoderSession)
+    OnlineDecoderConfig, OnlineDecoderInfo, OnlineDecoderSession,
+    word_alignment)
 
 from test_session import make_info, make_wave  # noqa: E402
 
 
 def port_info(jinfo) -> OnlineDecoderInfo:
-    """The port's info over the JAX info's model, graph and configs."""
+    """The port's info over the JAX info's model, graph and configs (for
+    ``clg`` the same ClgFst, for ``biglm-hclg`` a DeviceDiffLm over the
+    same host LMs and scales)."""
     layers = [(l.kind, l.input_dim, l.output_dim, l.meta,
                {k: np.asarray(v) for k, v in l.params.items()})
               for l in jinfo.nnet.layers]
+    kw = {}
+    if jinfo.config.graph_type == "clg":
+        kw["clg_graph"] = jinfo.search.g
+    elif jinfo.config.graph_type == "biglm-hclg":
+        d = jinfo.search.difflm
+        kw["difflm"] = DeviceDiffLm.build(d.lm1.fsa, d.lm2.fsa, d.lm1_scale,
+                                          d.lm2_scale, device="cpu")
     return OnlineDecoderInfo(
         from_numpy_layers(layers), jinfo.fst, jinfo.words, jinfo.ilabel2pdf,
         decoder_config=jinfo.decoder_config,
         online_config=OnlineDecoderConfig(**asdict(jinfo.config)),
         fbank_config=FbankConfig(**asdict(jinfo.fbank_config)),
-        am_config=AmConfig(**asdict(jinfo.am_config)), device="cpu")
+        am_config=AmConfig(**asdict(jinfo.am_config)), device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
@@ -207,9 +218,17 @@ def test_server_answers_concurrent_clients(infos):
 
 
 def test_unported_configs_raise(infos):
+    """The energy VAD is not ported; every graph type is, and one that
+    lacks its graph is refused."""
     jinfo, _ = infos
-    for kw in (dict(graph_type="clg"), dict(use_energy_vad=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        OnlineDecoderInfo(
+            from_numpy_layers([]), jinfo.fst, jinfo.words, jinfo.ilabel2pdf,
+            online_config=OnlineDecoderConfig(use_energy_vad=True),
+            device="cpu")
+    for kw in (dict(graph_type="clg"), dict(graph_type="biglm-hclg"),
+               dict(graph_type="hmm")):
+        with pytest.raises(ValueError):
             OnlineDecoderInfo(
                 from_numpy_layers([]), jinfo.fst, jinfo.words,
                 jinfo.ilabel2pdf, online_config=OnlineDecoderConfig(**kw),
@@ -232,3 +251,176 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# -- the clg and biglm-hclg graph types ----------------------------------
+
+def graph_infos(graph_type: str, lm_lanes: int = 1 << 20):
+    """(JAX info, port info) of one graph type over ``make_info``'s AM and
+    words: ``clg`` over ``tests/test_clg.py``'s composite (15 pdfs),
+    ``biglm-hclg`` over ``make_info``'s graph with the difference of
+    ``tests/test_lm.py``'s two ARPA LMs (scales 0.7 / 1.3)."""
+    from asr_decoder_tpu.decoder.config import DecoderConfig
+    from asr_decoder_tpu.lm.arpa import parse_arpa
+    from asr_decoder_tpu.lm.device_lm import DeviceDiffLm as JaxDiffLm
+    from asr_decoder_tpu.serving.session import OnlineDecoderConfig as JOC
+    from asr_decoder_tpu.serving.session import OnlineDecoderInfo as JOI
+    from test_clg import make_clg
+    from test_lm import ARPA, ARPA2
+    base = make_info()
+    kw, fst = {}, base.fst
+    if graph_type == "clg":
+        kw["clg_graph"] = make_clg(11, num_pdfs=15)[1]
+        fst = None
+    else:
+        fsa1 = parse_arpa(ARPA)
+        fsa2 = parse_arpa(ARPA2, word2id=fsa1.vocab)
+        kw["difflm"] = JaxDiffLm.build(fsa1, fsa2, 0.7, 1.3)
+    jinfo = JOI(base.nnet, fst, base.words, base.ilabel2pdf,
+                decoder_config=DecoderConfig(
+                    beam=1e9, beam_width=64, arc_lanes=8, min_active=0,
+                    lattice_beam=8.0, eps_mode="sweeps", lm_lanes=lm_lanes),
+                online_config=JOC(graph_type=graph_type, chunk_frames=16),
+                fbank_config=base.fbank_config, **kw)
+    return jinfo, port_info(jinfo)
+
+
+@pytest.fixture(scope="module", params=["clg", "biglm-hclg"])
+def graph(request):
+    return graph_infos(request.param)
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_graph_type_session_matches_jax(graph, seed):
+    """Words and cost against the JAX session; chunk splits do not change
+    the port's result."""
+    jinfo, pinfo = graph
+    wave = make_wave(seed, n=12000)
+    jb = _decode(JaxSession, jinfo, wave).get_best_path()
+    pb = _decode(OnlineDecoderSession, pinfo, wave).get_best_path()
+    assert pb["words"] == jb["words"]
+    assert pb["cost"] == pytest.approx(jb["cost"], abs=1e-3)
+    assert pb["reached_final"] == jb["reached_final"]
+    assert not pb.get("overflowed")
+    for splits in ((3000, 7000), (160, 11000)):
+        got = _decode(OnlineDecoderSession, pinfo, wave, splits)
+        assert got.get_best_path() == pb
+
+
+def test_graph_type_lattice_and_alignment(graph):
+    """Lattice n-best follows the best path for both graph types; word
+    alignment exists for biglm-hclg and raises for clg (no arc-labelled
+    fst), as in the JAX session."""
+    jinfo, pinfo = graph
+    wave = make_wave(2, n=9000)
+    p = _decode(OnlineDecoderSession, pinfo, wave)
+    j = _decode(JaxSession, jinfo, wave)
+    assert p.get_lattice() is not None
+    assert p.get_nbest_txt(3) == j.get_nbest_txt(3)
+    if pinfo.config.graph_type == "clg":
+        with pytest.raises(RuntimeError, match="alignment"):
+            p.get_word_alignment()
+    else:
+        assert p.get_word_alignment() == j.get_word_alignment()
+
+
+def test_graph_type_batcher_matches_sessions(graph):
+    """The arena (beam lanes and logs sliced by the generic rule) against
+    the port's sessions, interleaved, with a slot released and reused."""
+    _, pinfo = graph
+    waves = [make_wave(30 + s, n=[9000, 6000, 7500][s]) for s in range(3)]
+    want = [_decode(OnlineDecoderSession, pinfo, w).get_best_path()
+            for w in waves]
+    eng = BatchedStreamingDecoder(pinfo, num_channels=3)
+    spare = eng.acquire()
+    eng.push(spare, make_wave(40, n=6000))
+    eng.step()
+    eng.release(spare)
+    cids = [eng.acquire() for _ in waves]
+    _feed_interleaved(eng, cids, waves, [3000, 2000, 2500])
+    for cid, w in zip(cids, want):
+        assert eng.get_best_path(cid) == w
+
+
+def _serve(info, waves, **client_kw):
+    async def run():
+        server = AsrServer(info, SocketConfig(port=0, num_channels=4))
+        host, port = await server.start()
+        try:
+            async def one(w):
+                c = AsyncAsrClient(host, port)
+                await c.connect()
+                try:
+                    return await c.decode_utterance(w.astype(np.int16),
+                                                    **client_kw)
+                finally:
+                    await c.close()
+            return await asyncio.gather(*(one(w) for w in waves))
+        finally:
+            await server.stop()
+    return asyncio.run(run())
+
+
+def test_graph_type_server_replies(graph):
+    """Served replies equal the batcher; a clg request with ali_info set
+    answers with no alignment (and does not crash), a biglm-hclg one with
+    its spans."""
+    _, pinfo = graph
+    waves = [make_wave(50 + s, n=[8000, 6400][s]) for s in range(2)]
+    eng = BatchedStreamingDecoder(pinfo, num_channels=2)
+    cids = [eng.acquire() for _ in waves]
+    _feed_interleaved(eng, cids, waves, [3200, 3200])
+    replies = _serve(pinfo, waves, ali_info=True)
+    for r, cid in zip(replies, cids):
+        assert r.end_flag == EndFlag.END and not r.warn
+        assert r.results[0].words == eng.get_best_path(cid)["words"]
+        if pinfo.config.graph_type == "clg":
+            assert not r.ali_info and not r.align
+        else:
+            assert r.ali_info
+            # spans ride the wire as f32 seconds
+            want = word_alignment(pinfo, eng.get_best_path(cid))
+            assert [a[0] for a in r.align] == [a[0] for a in want]
+            np.testing.assert_allclose([a[1:] for a in r.align],
+                                       [a[1:] for a in want], atol=1e-6)
+
+
+def test_biglm_server_warns_on_lm_lane_overflow():
+    """lm_lanes too small for the graph: word candidates are dropped, the
+    traceback says ``overflowed`` and the reply carries ``warn``."""
+    _, pinfo = graph_infos("biglm-hclg", lm_lanes=2)
+    wave = make_wave(60, n=8000)
+    assert _decode(OnlineDecoderSession, pinfo, wave).get_best_path()[
+        "overflowed"]
+    (reply,) = _serve(pinfo, [wave])
+    assert reply.end_flag == EndFlag.END and reply.warn
+
+
+def test_build_info_loads_clg_with_hmmfst_file(tmp_path):
+    """``--graph-type=clg --hmmfst-file=...``: the CLI loader reads the CLG
+    layer and the HMM bundle and serves like an info built in process."""
+    from asr_decoder_tpu.fst.clg import write_hmm_bundle
+    from asr_decoder_tpu.utils.config import ConfigOptions
+    from asr_decoder_tpu_torch.cli._model import (build_info,
+                                                  register_info_flags)
+    _, pinfo = graph_infos("clg")
+    g = pinfo.search.g
+    paths = {n: str(tmp_path / n) for n in ("am", "clg", "hmm", "words")}
+    pinfo.nnet.write_binary(paths["am"])
+    g.clg.write_binary(paths["clg"])
+    write_hmm_bundle(paths["hmm"], g.hmms)
+    pinfo.words.write_text(paths["words"])
+    opts = ConfigOptions()
+    dec, online, fbank, am, extra = register_info_flags(opts)
+    pos = opts.parse(["--graph-type=clg", f"--hmmfst-file={paths['hmm']}",
+                      "--beam=1e9", "--beam-width=64", "--min-active=0",
+                      "--chunk-frames=16", "--fbank.num-bins=16",
+                      paths["am"], paths["clg"], paths["words"]])
+    info = build_info(*pos, dec, online, fbank, am, extra, device="cpu")
+    assert info.fst is None and info.search.g.offset == g.offset
+    wave = make_wave(5, n=9000)
+    assert _decode(OnlineDecoderSession, info, wave).get_best_path() == \
+        _decode(OnlineDecoderSession, pinfo, wave).get_best_path()
+    extra["hmmfst-file"] = ""
+    with pytest.raises(ValueError, match="hmmfst-file"):
+        build_info(*pos, dec, online, fbank, am, extra, device="cpu")
