@@ -4,14 +4,17 @@ A port of ``asr_decoder_tpu`` (JAX/XLA/Pallas on a TPU) to PyTorch on an
 NVIDIA Hopper GPU.  The JAX package stays the reference: each module here
 mirrors the module of the same name there, and the tests hold each one to
 its JAX counterpart on identical inputs.  This package imports ``torch``
-and never ``jax``.
+and nothing of ``jax`` or of ``asr_decoder_tpu``.
 
 Ported (module for module):
   ops/gather.py, ops/fetch.py  — hand-written CUDA kernels (csrc/*.cu for
                                  sm_90a, built at first use by ops/_build.py)
                                  with their plain PyTorch versions; the
-                                 fetch kernel also serves the row gather of
-                                 tools/perf (ops/fetch.py:row_gather)
+                                 gather takes up to 8 tables that share an
+                                 index in one launch (batched_table_gather_
+                                 many); the fetch kernel also serves the row
+                                 gather of tools/perf (ops/fetch.py:
+                                 row_gather)
   ops/beamsearch.py            — both search engines: v3 (relax_impl=topk)
                                  and v2 (relax_impl=sort) in closure and
                                  sweeps ε mode, with the JAX auto rules
@@ -34,13 +37,13 @@ Ported (module for module):
                                  tools (bench_row_gather, bench_dma_variants,
                                  bench_points, profile_production)
 
-Shared from ``asr_decoder_tpu`` (host-only numpy, no jax): ``fst/*`` (incl.
-``fst/clg.py``), ``lm/arpa.py``, ``lm/synth_arpa.py``, ``decoder/config.py``,
-``decoder/gold.py``, ``decoder/raw_lattice.py`` (incl. ``ClgExpander`` and
-``BigLmExpander``), ``serving/protocol.py``, ``serving/client.py``,
-``frontend/audio.py``, ``align/*``, ``eval/synth_task.py``,
-``models/transition.py``, ``utils/config.py``, ``utils/logging.py``,
-``utils/wer.py``.
+Copied from ``asr_decoder_tpu`` (host-only numpy; the same code, imports
+rewritten, file formats unchanged): ``fst/{fst,semiring,symbol,lattice,
+determinize,nbest,device_fst,clg,ctc_graph,synthetic}.py``,
+``decoder/{config,raw_lattice}.py``, ``lm/{arpa,synth_arpa}.py``,
+``utils/{config,logging,wer}.py``, ``serving/{protocol,client}.py``,
+``frontend/audio.py``, ``align/word_align.py``, ``eval/synth_task.py``,
+``models/transition.py``.
 
 Not ported yet (raise ``NotImplementedError`` where a config reaches them):
 pitch, VAD (and so endpointing); nor ``serving/v1_session.py``,

@@ -12,11 +12,11 @@ import struct
 import numpy as np
 import torch
 
-from asr_decoder_tpu.decoder.config import DecoderConfig
-from asr_decoder_tpu.fst.clg import ClgFst
-from asr_decoder_tpu.fst.fst import StdFst
-from asr_decoder_tpu.fst.symbol import SymbolTable
-from asr_decoder_tpu.utils.config import ConfigOptions
+from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+from asr_decoder_tpu_torch.fst.clg import ClgFst
+from asr_decoder_tpu_torch.fst.fst import StdFst
+from asr_decoder_tpu_torch.fst.symbol import SymbolTable
+from asr_decoder_tpu_torch.utils.config import ConfigOptions
 from asr_decoder_tpu_torch.frontend.fbank import FbankConfig
 from asr_decoder_tpu_torch.models.nnet import AmConfig, Nnet
 from asr_decoder_tpu_torch.serving.session import (OnlineDecoderConfig,
@@ -67,7 +67,7 @@ def build_info(am_path: str, graph_path: str, words_path: str,
     # fp32 products stay fp32 on the card (TF32 keeps ~3 digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    nnet = Nnet.read_binary(am_path)
+    nnet = Nnet.read_binary(am_path, device=device)
     words = SymbolTable.read_text(words_path)
     kw = {}
     if online.graph_type == "clg":
@@ -79,7 +79,7 @@ def build_info(am_path: str, graph_path: str, words_path: str,
     else:
         fst = load_graph(graph_path)
     if extra["trans-model"]:
-        from asr_decoder_tpu.models.transition import TransitionModel
+        from asr_decoder_tpu_torch.models.transition import TransitionModel
         tm = TransitionModel.read(extra["trans-model"])
         i2p = tm.ilabel_map(ctc_blank_shift=online.ctc_blank_shift)
     else:

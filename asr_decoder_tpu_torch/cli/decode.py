@@ -11,9 +11,9 @@ from __future__ import annotations
 import sys
 import time
 
-from asr_decoder_tpu.frontend.audio import decode_audio
-from asr_decoder_tpu.utils.config import ConfigOptions
-from asr_decoder_tpu.utils.wer import WerStats, score_pair
+from asr_decoder_tpu_torch.frontend.audio import decode_audio
+from asr_decoder_tpu_torch.utils.config import ConfigOptions
+from asr_decoder_tpu_torch.utils.wer import WerStats, score_pair
 from asr_decoder_tpu_torch.cli._model import build_info, register_info_flags
 from asr_decoder_tpu_torch.serving.session import OnlineDecoderSession
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 import asyncio
 import sys
 
-from asr_decoder_tpu.utils.config import ConfigOptions
+from asr_decoder_tpu_torch.utils.config import ConfigOptions
 from asr_decoder_tpu_torch.cli._model import build_info, register_info_flags
 from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
 

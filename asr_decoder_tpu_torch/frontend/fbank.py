@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from asr_decoder_tpu.utils.config import ConfigOptions, flag
+from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 
 
 @dataclass

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from asr_decoder_tpu.lm.arpa import Fsa
+from asr_decoder_tpu_torch.lm.arpa import Fsa
 
 UNSEEN_PENALTY = 100.0   # host Fsa.get_arc parity (lm/arpa.py)
 

@@ -20,7 +20,7 @@ from asr_decoder_tpu_torch.models.nnet import Nnet
 
 def make_flagship(seed: int, feat_dim: int = 80, num_pdfs: int = 2048,
                   hidden: int = 1024, proj: int = 512, num_layers: int = 3,
-                  context: int = 1, device=None) -> Nnet:
+                  context: int = 1, device="cuda") -> Nnet:
     gen = torch.Generator().manual_seed(seed)
     offsets = list(range(-context, context + 1))
     spliced = feat_dim * len(offsets)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from asr_decoder_tpu.utils.config import ConfigOptions, flag
+from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.models.layers import (ID_KINDS, KIND_IDS, Layer,
                                                  make_layer)
 
@@ -84,7 +84,7 @@ class Nnet(nn.Module):
     # reference raw-binary model format
     # ------------------------------------------------------------------
     @staticmethod
-    def read_binary(path: str, device=None) -> "Nnet":
+    def read_binary(path: str, device="cuda") -> "Nnet":
         layers: list[Layer] = []
         with open(path, "rb") as f:
             (nlayer,) = struct.unpack("<I", f.read(4))
@@ -110,7 +110,7 @@ class Nnet(nn.Module):
                 _write_layer_blob(f, l)
 
 
-def from_numpy_layers(layers, device=None) -> Nnet:
+def from_numpy_layers(layers, device="cuda") -> Nnet:
     """Build the port's Nnet from ``(kind, input_dim, output_dim, meta,
     {name: ndarray})`` tuples — what a JAX ``Nnet`` yields as
     ``[(l.kind, l.input_dim, l.output_dim, l.meta, {k: np.asarray(v) for

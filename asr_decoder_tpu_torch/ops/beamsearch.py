@@ -39,10 +39,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from asr_decoder_tpu.decoder.config import DecoderConfig
-from asr_decoder_tpu.fst.device_fst import DeviceFst
+from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.ops.fetch import fetch_records
-from asr_decoder_tpu_torch.ops.gather import batched_table_gather
+from asr_decoder_tpu_torch.ops.gather import (batched_table_gather,
+                                              batched_table_gather_many)
 from asr_decoder_tpu_torch.utils.profiling import scope
 
 INF = float("inf")
@@ -267,13 +268,12 @@ def _relax_and_prune(dst, cost, *, K, beam, min_active, extra_keys=()):
                        ~same], dim=1)
     cost_s = torch.where(first & (sort_dst != BIG_STATE), cost_s, INF)
     cost_k, tk = _smallest(cost_s, K)
-    state_k = batched_table_gather(sort_dst, tk)
-    win = batched_table_gather(idx_s, tk)
+    state_k, win, *extras_k = batched_table_gather_many(
+        (sort_dst, idx_s, *extras_s), tk)
     # adaptive beam: always keep the best min_active slots
     keep = torch.isfinite(cost_k) & ((cost_k <= cost_k[:, :1] + beam)
                                      | (_lane_iota(K, dev) < min_active))
-    extras_k = tuple(torch.where(keep, batched_table_gather(e, tk), 0)
-                     for e in extras_s)
+    extras_k = tuple(torch.where(keep, e, 0) for e in extras_k)
     return (torch.where(keep, state_k, NO_STATE),
             torch.where(keep, cost_k, INF),
             torch.where(keep, win, 0), keep, *extras_k)
@@ -423,7 +423,6 @@ def _relax_topk(dst, cost, *, K, beam, min_active, F, clo_first=False):
         bit_s = torch.where(d_s != BIG_STATE, (d_s >> 30) & 1, 0)
         val = torch.where(torch.isfinite(c_s), bit_s.float(), -INF)
         _, pos = _smallest(-val, K)
-        cost2 = batched_table_gather(c_s, pos)
     elif clo_first:
         c1, pos1 = _smallest(c_s, K)                      # select by cost
         alive1 = torch.isfinite(c1)
@@ -433,13 +432,15 @@ def _relax_topk(dst, cost, *, K, beam, min_active, F, clo_first=False):
         val = torch.where(alive1, bit1.float(), -INF)
         _, pos2 = _smallest(-val, K)                      # group ε-first
         pos = batched_table_gather(pos1, pos2)
-        cost2 = batched_table_gather(c_s, pos)
+    if clo_first:
+        # the winners' cost, state and candidate index: one gather
+        cost2, state2, fi2 = batched_table_gather_many((c_s, d_s, fi_s), pos)
     else:
         cost2, pos = _smallest(c_s, K)
+        state2, fi2 = batched_table_gather_many((d_s, fi_s), pos)
     alive = torch.isfinite(cost2)
-    pos = torch.where(alive, pos, 0)
-    state2 = torch.where(alive, batched_table_gather(d_s, pos), NO_STATE)
-    fi2 = torch.where(alive, batched_table_gather(fi_s, pos), 0)
+    state2 = torch.where(alive, state2, NO_STATE)
+    fi2 = torch.where(alive, fi2, 0)
     cost2 = torch.where(alive, cost2, INF)
     live = alive.sum(dim=1, dtype=torch.int32)
     return state2, cost2, fi2, alive, live
@@ -750,7 +751,7 @@ class TorchBeamSearch:
                      loglikes, fst, frame_mask=None):
         """Pruned raw lattices for every utterance from the token snapshots
         (``decoder/raw_lattice.py``); ``fst`` is the source StdFst."""
-        from asr_decoder_tpu.decoder.raw_lattice import \
+        from asr_decoder_tpu_torch.decoder.raw_lattice import \
             lattice_from_token_sets
         loglikes = _np(loglikes)
         B, T = loglikes.shape[:2]

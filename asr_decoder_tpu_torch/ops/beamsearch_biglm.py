@@ -12,9 +12,9 @@ on (dst, lm1, lm2) through ``_relax_and_prune(extra_keys=...)``.
 
 Word olabels are sparse, so with ``lm_lanes`` < N the word candidates are
 compacted first: one stable sort by has-word (``torch.sort(stable=True)``,
-then one ``batched_table_gather`` per operand) brings them to the front,
-the LMs are probed on the first ``lm_lanes`` lanes only, and the relax
-consumes the permuted arrays (relaxation is order-free).  Word candidates
+then one ``batched_table_gather_many`` of all operands) brings them to the
+front, the LMs are probed on the first ``lm_lanes`` lanes only, and the
+relax consumes the permuted arrays (relaxation is order-free).  Word candidates
 past the lanes are dropped (cost → INF) and the frame's ``overflow`` flag
 is set — surfaced per utterance as ``overflowed``.  ε arcs can carry words
 too (ref ProcessNonemitting :405-469), so the search always runs bounded ε
@@ -31,15 +31,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from asr_decoder_tpu.decoder.config import DecoderConfig
-from asr_decoder_tpu.fst.device_fst import DeviceFst
+from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.lm.device_lm import DeviceDiffLm
 from asr_decoder_tpu_torch.ops.beamsearch import (ARC_STAY, INF, NO_STATE,
                                                   _lane_iota, _np,
                                                   _pack_records,
                                                   _relax_and_prune, _rows,
                                                   run_frames)
-from asr_decoder_tpu_torch.ops.gather import batched_table_gather
+from asr_decoder_tpu_torch.ops.gather import (batched_table_gather,
+                                              batched_table_gather_many)
 from asr_decoder_tpu_torch.utils.profiling import scope
 
 LOG = logging.getLogger(__name__)
@@ -109,12 +110,10 @@ def _apply_lm(difflm: DeviceDiffLm, ol, l1, l2, dst, cand, src, aid, *,
         return (dst, cand, n1, n2, src, aid,
                 torch.zeros((B,), dtype=torch.bool, device=ol.device))
     # the JAX one-key stable lax.sort over eight operands: a stable sort of
-    # the key, then one gather per operand
+    # the key, then one gather of the seven other operands by its order
     key, order = torch.sort((~is_word).to(torch.int32), dim=1, stable=True)
-    order = order.to(torch.int32)
-    ol, l1, l2, dst, cand, src, aid = (batched_table_gather(t, order)
-                                       for t in (ol, l1, l2, dst, cand, src,
-                                                 aid))
+    ol, l1, l2, dst, cand, src, aid = batched_table_gather_many(
+        (ol, l1, l2, dst, cand, src, aid), order.to(torch.int32))
     overflow = key[:, M] == 0
     is_word_m = key[:, :M] == 0
     n1m, n2m, dcm = difflm.advance(l1[:, :M], l2[:, :M],
@@ -137,8 +136,9 @@ def _relax_pair(dst, cand, l1, l2, src, aid, *, cfg):
     state, cost, win, keep, l1k, l2k = _relax_and_prune(
         dst, cand, K=cfg["K"], beam=cfg["beam"],
         min_active=cfg["min_active"], extra_keys=(l1, l2))
-    prev = torch.where(keep, batched_table_gather(src, win), 0)
-    aidk = torch.where(keep, batched_table_gather(aid, win), ARC_STAY)
+    prev, aidk = batched_table_gather_many((src, aid), win)
+    prev = torch.where(keep, prev, 0)
+    aidk = torch.where(keep, aidk, ARC_STAY)
     return state, cost, l1k, l2k, prev, aidk
 
 
@@ -362,7 +362,7 @@ class TorchBigLmBeamSearch:
         difference-LM score folded into graph costs, the LM sentence-end
         cost as final weights (ref GetRawLattice inherited by the biglm
         decoder, online-decoder-mempool-base-biglm.h + base-inl.h:869)."""
-        from asr_decoder_tpu.decoder.raw_lattice import (
+        from asr_decoder_tpu_torch.decoder.raw_lattice import (
             BigLmExpander, lattice_from_token_sets_generic)
         lm1, lm2 = self.difflm.lm1.fsa, self.difflm.lm2.fsa
         s1, s2 = self.difflm.lm1_scale, self.difflm.lm2_scale

@@ -31,15 +31,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from asr_decoder_tpu.decoder.config import DecoderConfig
-from asr_decoder_tpu.fst.clg import ClgFst
-from asr_decoder_tpu.fst.fst import EPSILON
+from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+from asr_decoder_tpu_torch.fst.clg import ClgFst
+from asr_decoder_tpu_torch.fst.fst import EPSILON
 from asr_decoder_tpu_torch.ops.beamsearch import (ARC_STAY, INF, NO_STATE,
                                                   BeamState, FrameLog,
                                                   _lane_iota, _np,
                                                   _relax_and_prune,
                                                   _split_fields, run_frames)
-from asr_decoder_tpu_torch.ops.gather import batched_table_gather
+from asr_decoder_tpu_torch.ops.gather import (batched_table_gather,
+                                              batched_table_gather_many)
 from asr_decoder_tpu_torch.utils.profiling import scope
 
 ARC_EXIT = -3   # log sentinel: HMM exit hop (no arc table entry)
@@ -211,8 +212,9 @@ def _eps_stage(g: ClgGraphArrays, state, cost, *, cfg):
     state, cost, win, keep = _relax_and_prune(
         dst_all, cand_all, K=K, beam=cfg["beam"],
         min_active=cfg["min_active"])
-    prev = torch.where(keep, batched_table_gather(src_all, win), 0)
-    aid = torch.where(keep, batched_table_gather(aid_all, win), ARC_STAY)
+    prev, aid = batched_table_gather_many((src_all, aid_all), win)
+    prev = torch.where(keep, prev, 0)
+    aid = torch.where(keep, aid, ARC_STAY)
     return state, cost, prev, aid
 
 
@@ -332,7 +334,7 @@ class TorchClgBeamSearch:
         inputs, olabels = CLG words), reconstructed on the host by the
         shared ``decoder/raw_lattice.py`` (ref GetRawLattice,
         online-decoder-base-inl.h:869-977, inherited by the CLG decoder)."""
-        from asr_decoder_tpu.decoder.raw_lattice import (
+        from asr_decoder_tpu_torch.decoder.raw_lattice import (
             ClgExpander, lattice_from_token_sets_generic)
         loglikes = _np(loglikes)
         B, T = loglikes.shape[:2]

@@ -27,11 +27,11 @@ from concurrent.futures import ThreadPoolExecutor
 from contextlib import suppress
 from dataclasses import dataclass
 
-from asr_decoder_tpu.serving.protocol import (C2SPackage, EndFlag,
-                                              NbestResult, S2CPackage,
-                                              frame_s2c, read_c2s)
-from asr_decoder_tpu.utils.config import ConfigOptions, flag
-from asr_decoder_tpu.utils.logging import get_logger
+from asr_decoder_tpu_torch.serving.protocol import (C2SPackage, EndFlag,
+                                                    NbestResult, S2CPackage,
+                                                    frame_s2c, read_c2s)
+from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
+from asr_decoder_tpu_torch.utils.logging import get_logger
 from asr_decoder_tpu_torch.serving.batcher import (BatchedStreamingDecoder,
                                                    ChannelSnapshot)
 from asr_decoder_tpu_torch.serving.session import (OnlineDecoderInfo,

@@ -22,14 +22,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from asr_decoder_tpu.decoder.config import DecoderConfig
-from asr_decoder_tpu.fst.determinize import (DeterminizeError,
-                                             determinize_lattice)
-from asr_decoder_tpu.fst.device_fst import DeviceFst
-from asr_decoder_tpu.fst.fst import StdFst
-from asr_decoder_tpu.fst.nbest import nshortest
-from asr_decoder_tpu.fst.symbol import SymbolTable
-from asr_decoder_tpu.utils.config import ConfigOptions, flag
+from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+from asr_decoder_tpu_torch.fst.determinize import (DeterminizeError,
+                                                   determinize_lattice)
+from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
+from asr_decoder_tpu_torch.fst.fst import StdFst
+from asr_decoder_tpu_torch.fst.nbest import nshortest
+from asr_decoder_tpu_torch.fst.symbol import SymbolTable
+from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.frontend.fbank import CmvnConfig, FbankConfig
 from asr_decoder_tpu_torch.frontend.pipeline import StreamingFrontend
 from asr_decoder_tpu_torch.models.nnet import (AmConfig, Nnet, am_forward,
@@ -237,7 +237,8 @@ def word_alignment(info: OnlineDecoderInfo, best: dict,
                    frame_offset: int = 0) -> list[tuple[str, float, float]]:
     """Per-word time spans [(word, begin_s, end_s)] of a best path (ref:
     AlignTime, net-data-package.h:210); needs the arc-labelled ``fst``."""
-    from asr_decoder_tpu.align.word_align import spans_to_align, word_spans
+    from asr_decoder_tpu_torch.align.word_align import (spans_to_align,
+                                                        word_spans)
     fst = info.fst
     if fst is None:
         raise RuntimeError("word alignment needs an arc-labeled StdFst "

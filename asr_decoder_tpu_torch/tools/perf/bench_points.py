@@ -51,10 +51,10 @@ def _point(name: str, **size):
     """(DeviceFst, ilabel2pdf, loglikes [B,T,V], DecoderConfig kwargs,
     seconds of audio per frame) at the JAX tool's shapes; ``size``
     overrides states / words, B, T and K for a smoke run."""
-    from asr_decoder_tpu.fst.device_fst import DeviceFst
+    from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
     rng = np.random.default_rng(1)
     if name == "headline":
-        from asr_decoder_tpu.fst.synthetic import random_hclg
+        from asr_decoder_tpu_torch.fst.synthetic import random_hclg
         fst = random_hclg(np.random.default_rng(0),
                           num_states=size.get("states", 200_000),
                           num_ilabels=2048)
@@ -74,8 +74,8 @@ def _point(name: str, **size):
         kw = dict(arc_lanes=8, min_active=min(200, K))
         frame_s = 0.03
     elif name == "realistic":
-        from asr_decoder_tpu.eval.synth_task import SynthTask
-        from asr_decoder_tpu.fst.ctc_graph import build_ctc_decode_graph
+        from asr_decoder_tpu_torch.eval.synth_task import SynthTask
+        from asr_decoder_tpu_torch.fst.ctc_graph import build_ctc_decode_graph
         task = SynthTask(num_phones=40, num_words=size.get("words", 30_000),
                          feat_dim=24, seed=0)
         fst, i2p = build_ctc_decode_graph(task.lexicon, task.word_costs,
@@ -105,7 +105,7 @@ def _point(name: str, **size):
 
 def run_point(name: str, device: torch.device, **size) -> list[str]:
     """Time both engines at one point; prints and returns the rows."""
-    from asr_decoder_tpu.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     dev, i2p, ll_host, kw, frame_s = _point(name, **size)
     B, T = ll_host.shape[:2]

@@ -39,8 +39,8 @@ def build_or_load_dev(num_states: int = NUM_STATES):
     """The production graph: ``random_hclg(seed 1)`` at ``num_states``
     states, split to 8 arc lanes, ε-closure built — loaded from the
     checkout's ``build/`` when it was saved there before."""
-    from asr_decoder_tpu.fst.device_fst import DeviceFst
-    from asr_decoder_tpu.fst.synthetic import random_hclg
+    from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
+    from asr_decoder_tpu_torch.fst.synthetic import random_hclg
     path = BUILD_DIR / f"prod_graph_{num_states}.npz"
     if path.exists():
         dev = DeviceFst.load(str(path))
@@ -70,7 +70,7 @@ def _device_us(e) -> float:
 
 
 def main(argv=None):
-    from asr_decoder_tpu.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     device_arg(ap)

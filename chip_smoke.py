@@ -8,8 +8,12 @@ Builds the hand-written CUDA kernels of ``asr_decoder_tpu_torch`` from the
 sources in this checkout, then:
 
   1. reports the card (name; ``nvidia-smi`` name and power limit);
-  2. checks each kernel bit-exactly against its plain PyTorch version at
-     the shapes the serve path gives it, and times both;
+  2. checks each search kernel bit-exactly against its plain PyTorch
+     version at the main path's shapes (``GATHER_CASES``, the gather's
+     multi-table form included, and ``FETCH_CASES``, full and mixed live
+     counts) and times it beside its bound (the bytes the data needs at
+     3.35 TB/s), the plain version, the library call and the launch floor
+     (an empty kernel in the same graph harness);
   3. checks the row-gather counterparts of the three ``tools/perf`` TPU
      kernels (``make_dma_gather``, ``make_dma``, ``make_dma_dyn``) bit-
      exactly against their plain version at the JAX tools' shapes (2M-row
@@ -21,7 +25,8 @@ sources in this checkout, then:
      K=512, B=16) on the card and on the CPU — the v3 engine, then the v2
      engine in closure and in sweeps ε mode: logs, words and costs must be
      bit-identical (every search op is an exact fp32 add/compare, gather or
-     sort), and the gather kernel must launch in each v2 run;
+     sort), the gather kernel must launch in each v2 run, and a v3 frame
+     makes exactly ``V3_GATHERS_PER_FRAME`` gather launches;
   5. runs the full-width flagship AM on the card and on the CPU
      (allclose, ``AM_ATOL``: the products sum in another order);
   6. serves 16 concurrent 4-second utterances through the port's
@@ -34,7 +39,8 @@ sources in this checkout, then:
      LM, ``lm_lanes`` 1024, so the compaction runs): the gather kernel
      bit-exact against its plain version at their table shapes, fixed
      loglikes decoded on the card and on the CPU with bit-identical logs,
-     LM lanes, overflow flags, words and costs, then 8 concurrent 4-second
+     LM lanes, overflow flags, words and costs, the BigLM compaction one
+     gather launch for its seven operands, then 8 concurrent 4-second
      utterances served (``clg`` through the CLI loader's
      ``--hmmfst-file``), every reply equal to the in-process batcher, the
      gather kernel launching in each run.
@@ -43,9 +49,10 @@ Any failed check raises, so the script exits non-zero; it never falls back
 to the CPU.  Its last two lines are the kernels' JSON record (the five TPU
 kernels: the gather with its launches in the serve and graph-types runs,
 the fetch with its serve-run launches, the three microbench row gathers
-with their tool-path launches) and ``{"ok": true, "device": {...}}``.  It
-imports no JAX: of ``asr_decoder_tpu`` it uses only the numpy host modules
-the port shares, which it checks at the end of the run.
+with their tool-path launches, each with its bound and library time) and
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
+of the JAX package ``asr_decoder_tpu`` (the port keeps its own copies of
+the host modules), which it checks at the end of the run.
 """
 
 from __future__ import annotations
@@ -69,22 +76,31 @@ SEARCH = dict(beam=14.0, beam_width=512, arc_lanes=ARC_LANES, max_active=512,
 BATCH, FRAMES = 16, 133            # 4 s of audio after 3x subsampling
 UTTS, UTT_SECONDS, CHUNK = 16, 4.0, 3200
 AM_ATOL = 1e-3                     # log-likelihood units
-GATHER_SHAPES = [(2048, 4096), (4096, 1024), (2560, 1024), (1024, 512),
-                 (512, 512), (65536, 4096)]    # (V, N) at B=32
-FETCH_ROWS, FETCH_LANES = (200_001, 2_500_000), (32, 64, 128)
+# phase 2: the gather at the main path's shapes — (B, V, N, tables P,
+# label): the v3 relax tables at B=32, the acoustic lookup at the headline
+# point (B=256), the production relax (K=4096, F=2), and the multi-table
+# form at P = 2 (a backpointer pair), 3 (the relax winners) and 7 (the
+# BigLM compaction)
+GATHER_CASES = [(32, 2048, 4096, 1, ""), (32, 4096, 1024, 1, ""),
+                (32, 2560, 1024, 1, ""), (32, 1024, 512, 1, ""),
+                (32, 512, 512, 1, ""), (32, 65536, 4096, 1, ""),
+                (256, 2048, 4096, 1, " (headline acoustic)"),
+                (32, 32768, 8192, 1, " (production relax)"),
+                (32, 8192, 4096, 1, " (production relax)"),
+                (16, 1024, 512, 2, " (v3 closure winners)"),
+                (16, 1024, 512, 3, " (v3 emit winners)"),
+                (16, 4096, 4096, 7, " (biglm compaction)")]
+# the fetch: (rows S, lanes L, [(B, K)]) — the smoke graph, the
+# production-size table at the search's 32 and 64-lane records, and the
+# wide 128-lane record
+FETCH_SHAPES = [(16, 512), (256, 512), (32, 4096)]
+FETCH_CASES = [(200_001, 32, FETCH_SHAPES), (2_500_000, 32, FETCH_SHAPES),
+               (2_500_000, 64, FETCH_SHAPES), (2_500_000, 128, [(16, 512)])]
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published peak
+V3_GATHERS_PER_FRAME = 7           # phase 4: emit 5 + closure 2
 # the tools/perf row-gather microbenches (JAX tools' shapes)
 ROW_S, ROW_NIDX, ROW_WIDTHS = 2_000_000, 131_072, (128, 256, 512)
 ROW_LIVE = (131_072, 32_768, 8_192)
-# The numpy-only host modules of asr_decoder_tpu that the port shares (see
-# asr_decoder_tpu_torch/__init__.py), and the package __init__s above them.
-# Nothing else of that package, and nothing of jax, may load in this run.
-SHARED_HOST = ("fst", "align", "decoder.config", "decoder.gold",
-               "decoder.raw_lattice", "serving.protocol", "serving.client",
-               "frontend.audio", "models.transition", "lm.arpa",
-               "lm.synth_arpa", "utils.config", "utils.logging",
-               "utils.timer", "utils.wer")
-SHARED_INITS = ("", "decoder", "serving", "frontend", "models", "lm",
-                "utils")
 # phase 7, the graph types: the CLG layer and its HMMs, the BigLM's LMs
 CLG_HMMS = 2000
 LM_VOCAB = 5000
@@ -101,23 +117,12 @@ def check(ok: bool, what: str) -> None:
 
 
 def check_imports() -> None:
-    """No jax module was loaded, and of the JAX package only the shared
-    host modules were."""
-    jax_mods = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "jaxlib"))
-    check(not jax_mods, f"jax modules loaded: {jax_mods}")
-    shared, other = [], []
-    for m in sys.modules:
-        head, _, rest = m.partition(".")
-        if head != "asr_decoder_tpu":
-            continue
-        ok = rest in SHARED_INITS or any(
-            rest == s or rest.startswith(s + ".") for s in SHARED_HOST)
-        (shared if ok else other).append(m)
-    check(not other, f"non-shared modules of asr_decoder_tpu loaded: "
-                     f"{sorted(other)}")
-    print(f"imports: no jax; {len(shared)} shared host modules of "
-          f"asr_decoder_tpu (numpy only) and nothing else of it")
+    """No module of jax and none of the JAX package ``asr_decoder_tpu`` was
+    loaded: the port runs on its own copies of the host modules."""
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "jaxlib", "asr_decoder_tpu"))
+    check(not bad, f"jax or JAX-package modules loaded: {bad}")
+    print("imports: no jax and nothing of asr_decoder_tpu")
 
 
 def time_ms(fn, calls: int = 20, replays: int = 20) -> tuple[float, float]:
@@ -135,89 +140,155 @@ def time_ms(fn, calls: int = 20, replays: int = 20) -> tuple[float, float]:
 # phase 2: kernels against their plain versions
 # ----------------------------------------------------------------------
 
-def gather_case(gen, dev, B: int, V: int, N: int, dtype,
-                label: str = "") -> tuple[float, float, float, str]:
-    """The gather kernel against ``gather_plain`` on one random [B, V]
-    table and [B, N] index set, bit-exact, and both timed: (max abs err,
-    kernel device ms, plain device ms, report row)."""
+def bound_ms(nbytes: float) -> float:
+    """The least time to move ``nbytes`` at the card's memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def launch_floor_ms() -> float:
+    """Device time of an empty kernel (``torch.cuda._sleep(0)``: one thread,
+    no work) in the same graph harness: the floor under every kernel."""
+    return time_ms(lambda: torch.cuda._sleep(0))[0]
+
+
+def gather_case(gen, dev, B: int, V: int, N: int, dtype, label: str = "",
+                P: int = 1, floor: float = 0.0) -> dict:
+    """The gather kernel on P random [B, V] tables sharing one [B, N] index
+    (P = 1: one table of ``dtype``; P > 1: f32 and i32 tables in turn)
+    against its plain version, bit-exact, and timed beside its bound, the
+    plain version and the library call (``torch.gather`` with the index
+    cast to int64 outside the timed region; P calls for P tables).  Prints
+    one row; returns its numbers."""
     from asr_decoder_tpu_torch.ops import gather
-    if dtype == torch.float32:
-        table = torch.randn((B, V), generator=gen, device=dev)
-    else:
-        table = torch.randint(-2**31, 2**31 - 1, (B, V), generator=gen,
-                              device=dev, dtype=torch.int32)
+    types = [dtype] if P == 1 else [(torch.float32, torch.int32)[p % 2]
+                                    for p in range(P)]
+    tables = []
+    for t in types:
+        if t == torch.float32:
+            tables.append(torch.randn((B, V), generator=gen, device=dev))
+        else:
+            tables.append(torch.randint(-2**31, 2**31 - 1, (B, V),
+                                        generator=gen, device=dev,
+                                        dtype=torch.int32))
     idx = torch.randint(0, V, (B, N), generator=gen, device=dev,
                         dtype=torch.int32)
-    got = gather.batched_table_gather(table, idx)
-    want = gather.gather_plain(table, idx)
+    got = gather.batched_table_gather_many(tables, idx)
+    want = gather.gather_plain_many(tables, idx)
     torch.cuda.synchronize()
-    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
-          f"gather [{B},{V}]x[{B},{N}] {dtype} bit-exact")
-    err = (got.double() - want.double()).abs().max().item()
-    ms, wms = time_ms(lambda: gather.batched_table_gather(table, idx))
-    pms, pwms = time_ms(lambda: gather.gather_plain(table, idx))
-    return err, ms, pms, (
-        f"gather  [{B},{V}]x[{B},{N}] {str(dtype)[6:]}{label}: device "
-        f"kernel {ms:.4f} ms plain {pms:.4f} ms; per eager call kernel "
-        f"{wms:.4f} ms plain {pwms:.4f} ms")
+    err = 0.0
+    for g, w in zip(got, want):
+        check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+              f"gather [{B},{V}]x[{B},{N}] P={P} {types} bit-exact")
+        err = max(err, (g.double() - w.double()).abs().max().item())
+    idx64 = idx.long()
+    ms, wms = time_ms(lambda: gather.batched_table_gather_many(tables, idx))
+    pms, pwms = time_ms(lambda: gather.gather_plain_many(tables, idx))
+    lms, _ = time_ms(lambda: [torch.gather(t, 1, idx64) for t in tables])
+    # bytes: the table words this index touches (each read once), the
+    # index, the outputs
+    rows = torch.arange(B, device=dev)[:, None] * V
+    touched = torch.unique(idx.long() + rows).numel()
+    bms = bound_ms(4 * (P * touched + B * N + P * B * N))
+    name = str(dtype)[6:] if P == 1 else f"P={P}"
+    print(f"gather  [{B},{V}]x[{B},{N}] {name}{label}: device kernel "
+          f"{ms:.4f} ms, bound {bms * 1e3:.3f} us ({bms / ms:.1%}), plain "
+          f"{pms:.4f} ms, library {lms:.4f} ms, launch floor {floor:.4f} "
+          f"ms; per eager call kernel {wms:.4f} ms plain {pwms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
+                bound_ms=bms, bound_by="bytes")
+
+
+def fetch_cases(gen, dev, S: int, L: int, shapes, floor: float) -> dict:
+    """The fetch kernel on one random [S, L] table at each (B, K) of
+    ``shapes``, with every live and with mixed live counts (0, K, K/3, 1 a
+    row in turn): bit-exact against the plain version on the live rows,
+    and timed beside the bound, the plain version, the library call
+    (``torch.index_select`` over pre-clamped states, which reads every B·K
+    row) and the launch floor.
+    Timed calls cycle through 64 index sets: at 2.5M rows the rows they
+    touch overflow the 50 MB L2, as the production graph's would; the 200k
+    table fits the L2 whole.  Returns {(B, K): numbers, full live}."""
+    from asr_decoder_tpu_torch.ops import fetch
+    table = torch.randint(-2**31, 2**31 - 1, (S, L), generator=gen,
+                          device=dev, dtype=torch.int32)
+    out = {}
+    for B, K in shapes:
+        states = [torch.randint(0, S, (B, K), generator=gen, device=dev,
+                                dtype=torch.int32) for _ in range(64)]
+        flat = [s.view(-1).clamp(0, S - 1) for s in states]
+        full = torch.full((B,), K, dtype=torch.int32, device=dev)
+        mixed = torch.tensor([[0, K, K // 3, 1][b % 4] for b in range(B)],
+                             dtype=torch.int32, device=dev)
+        err = 0.0
+        for live in (full, mixed):
+            rows_live = (torch.arange(K, device=dev)[None, :]
+                         < live[:, None])
+            want = fetch.fetch_plain(table, states[0])[rows_live]
+            got = fetch.fetch_records(table, states[0], live)[rows_live]
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"fetch [{S},{L}] B={B} K={K} live rows bit-exact")
+            err = max(err, (got.double() - want.double()).abs().max()
+                      .item() if got.numel() else 0.0)
+        it = iter(range(1 << 30))
+        rec = dict(max_abs_err=err)
+        for live, tag in ((full, "full"), (mixed, "mixed")):
+            # bytes: live[b] and the live states, each distinct live row
+            # read once, each live output row written once
+            alive = (torch.arange(K, device=dev)[None, :] < live[:, None])
+            nlive = int(alive.sum())
+            rows = torch.unique(states[0][alive].clamp(0, S - 1)).numel()
+            bms = bound_ms(4 * B + 4 * nlive + 4 * L * (rows + nlive))
+            ms = time_ms(lambda: fetch.fetch_records(
+                table, states[next(it) % 64], live), calls=64,
+                replays=5)[0]
+            print(f"fetch   [{S},{L}] B={B} K={K} live {tag} ({nlive} "
+                  f"rows): device kernel {ms:.4f} ms, bound "
+                  f"{bms * 1e3:.3f} us ({bms / ms:.1%})")
+            if tag == "full":
+                rec.update(ms=ms, bound_ms=bms, bound_by="bytes")
+        pms, pwms = time_ms(lambda: fetch.fetch_plain(
+            table, states[next(it) % 64]), calls=64, replays=5)
+        lms, _ = time_ms(lambda: torch.index_select(
+            table, 0, flat[next(it) % 64]), calls=64, replays=5)
+        wms = time_ms(lambda: fetch.fetch_records(
+            table, states[next(it) % 64], full), calls=64, replays=5)[1]
+        print(f"fetch   [{S},{L}] B={B} K={K}: plain {pms:.4f} ms, library "
+              f"{lms:.4f} ms, launch floor {floor:.4f} ms; per eager call "
+              f"kernel {wms:.4f} ms plain {pwms:.4f} ms")
+        rec.update(plain_ms=pms, library_ms=lms)
+        out[(B, K)] = rec
+        del states, flat
+    del table
+    return out
 
 
 def phase_kernels(dev) -> dict:
-    from asr_decoder_tpu_torch.ops import fetch
+    """Both search kernels at the main path's shapes (``GATHER_CASES``,
+    ``FETCH_CASES``); returns the JSON numbers of each at its record shape
+    (the gather f32 [32,2048]x[32,4096], the fetch [200001,32] B=16
+    K=512 with every token live)."""
     gen = torch.Generator(device=dev).manual_seed(0)
+    floor = launch_floor_ms()
+    print(f"launch floor: empty kernel {floor:.4f} ms device (graph replay)")
     out = {}
     err = 0.0
-    rows = []
-    for V, N in GATHER_SHAPES:
-        for dtype in (torch.float32, torch.int32):
-            e, ms, pms, row = gather_case(gen, dev, 32, V, N, dtype)
-            err = max(err, e)
-            rows.append(row)
-            if (V, N) == (2048, 4096) and dtype == torch.float32:
-                out["gather"] = dict(ms=ms, plain_ms=pms)
+    for B, V, N, P, label in GATHER_CASES:
+        for dtype in ((torch.float32, torch.int32) if P == 1
+                      else (torch.float32,)):
+            rec = gather_case(gen, dev, B, V, N, dtype, label, P, floor)
+            err = max(err, rec["max_abs_err"])
+            if (B, V, N, P) == (32, 2048, 4096, 1) and \
+                    dtype == torch.float32:
+                out["gather"] = rec
     out["gather"]["max_abs_err"] = err
-    B, K = BATCH, SEARCH["beam_width"]
     err = 0.0
-    for S in FETCH_ROWS:
-        for L in FETCH_LANES:
-            table = torch.randint(-2**31, 2**31 - 1, (S, L), generator=gen,
-                                  device=dev, dtype=torch.int32)
-            # timed calls cycle through 64 index sets: at 2.5M rows the rows
-            # they touch (64-256 MB) overflow the 50 MB L2, as the
-            # production graph's would; the 200k table fits L2 whole
-            states = [torch.randint(0, S, (B, K), generator=gen, device=dev,
-                                    dtype=torch.int32) for _ in range(64)]
-            full = torch.full((B,), K, dtype=torch.int32, device=dev)
-            mixed = torch.tensor([[0, K, K // 3, 1][b % 4] for b in range(B)],
-                                 dtype=torch.int32, device=dev)
-            for live in (full, mixed):
-                got = fetch.fetch_records(table, states[0], live)
-                want = fetch.fetch_plain(table, states[0])
-                rows_live = (torch.arange(K, device=dev)[None, :]
-                             < live[:, None])
-                torch.cuda.synchronize()
-                check(torch.equal(got[rows_live], want[rows_live]),
-                      f"fetch [{S},{L}] live rows bit-exact")
-                err = max(err, (got[rows_live].double()
-                                - want[rows_live].double()).abs().max()
-                          .item() if rows_live.any() else 0.0)
-            it = iter(range(1 << 30))
-            ms, wms = time_ms(lambda: fetch.fetch_records(
-                table, states[next(it) % 64], full), calls=64, replays=5)
-            pms, pwms = time_ms(lambda: fetch.fetch_plain(
-                table, states[next(it) % 64]), calls=64, replays=5)
-            mms, _ = time_ms(lambda: fetch.fetch_records(
-                table, states[next(it) % 64], mixed), calls=64, replays=5)
-            rows.append(f"fetch   [{S},{L}] B={B} K={K}: device kernel "
-                        f"{ms:.4f} ms (live=K) {mms:.4f} ms (live 0/K/K3/1) "
-                        f"plain {pms:.4f} ms; per eager call kernel "
-                        f"{wms:.4f} ms plain {pwms:.4f} ms")
-            if (S, L) == (200_001, 32):
-                out["fetch"] = dict(ms=ms, plain_ms=pms)
-            del table, states
+    for S, L, shapes in FETCH_CASES:
+        recs = fetch_cases(gen, dev, S, L, shapes, floor)
+        err = max(err, *(r["max_abs_err"] for r in recs.values()))
+        if (S, L) == (200_001, 32):
+            out["fetch"] = recs[(BATCH, 512)]
     out["fetch"]["max_abs_err"] = err
-    for r in rows:
-        print(r)
     return out
 
 
@@ -264,14 +335,23 @@ def phase_rows(dev) -> dict:
             ms, wms = time_ms(lambda: fn(table, idx), calls=10, replays=5)
             pms, pwms = time_ms(lambda: rg.xla_row_gather(table, idx),
                                 calls=10, replays=5)
+            live_idx = idx[:n]
+            lms, _ = time_ms(lambda: torch.index_select(table, 0, live_idx),
+                             calls=10, replays=5)
+            # the count, the live indices, each distinct row read once and
+            # each live output row written once
+            rows_read = torch.unique(live_idx).numel()
+            bms = bound_ms(4 + 4 * n + 4 * W * (rows_read + n))
             rows.append(f"rows    {name} [{ROW_S},{W}] x {ROW_NIDX}, live "
-                        f"{n}: device kernel {ms:.4f} ms plain {pms:.4f} "
-                        f"ms; per eager call kernel {wms:.4f} ms plain "
-                        f"{pwms:.4f} ms")
+                        f"{n}: device kernel {ms:.4f} ms, bound "
+                        f"{bms:.4f} ms ({bms / ms:.1%}), plain {pms:.4f} "
+                        f"ms, library {lms:.4f} ms; per eager call kernel "
+                        f"{wms:.4f} ms plain {pwms:.4f} ms")
             if (name, W, n) in (("make_dma_gather", 128, ROW_NIDX),
                                 ("make_dma", ROW_WIDTHS[-1], ROW_NIDX),
                                 ("make_dma_dyn", 128, ROW_LIVE[1])):
-                out[name].update(ms=ms, plain_ms=pms)
+                out[name].update(ms=ms, plain_ms=pms, library_ms=lms,
+                                 bound_ms=bms, bound_by="bytes")
         del table
     for r in rows:
         print(r)
@@ -295,7 +375,7 @@ def phase_rows(dev) -> dict:
 # ----------------------------------------------------------------------
 
 def make_graph():
-    from asr_decoder_tpu.fst.synthetic import random_hclg
+    from asr_decoder_tpu_torch.fst.synthetic import random_hclg
     fst = random_hclg(np.random.default_rng(0), num_states=GRAPH_STATES,
                       num_ilabels=NUM_PDFS)
     # ilabel i scores AM row i-1 (the CTC map, ref nnet-nnet.h:226)
@@ -377,12 +457,24 @@ def card_vs_cpu(dev, label: str, make, ll: np.ndarray, traceback) -> tuple:
     return g, gout, gres, rec
 
 
+def gathers_per_frame(search, dev, frames: int = 8) -> float:
+    """Gather launches a frame of ``search.advance`` on the card (decode
+    adds the initial ε stage's)."""
+    from asr_decoder_tpu_torch.ops import gather
+    state, _ = search.init_state(BATCH)
+    ll = torch.from_numpy(fixed_loglikes(frames, seed=2)).to(dev)
+    gather.launches = 0
+    search.advance(state, ll)
+    torch.cuda.synchronize()
+    return gather.launches / frames
+
+
 def phase_search(dev, fst, i2p, frames: int = FRAMES, **engine) -> dict:
     """One search config (``SEARCH`` with ``engine`` over it) on the card
     and on the CPU, bit-identical; returns the kernel launches of the card
     run and its ms/frame on both devices."""
-    from asr_decoder_tpu.decoder.config import DecoderConfig
-    from asr_decoder_tpu.fst.device_fst import DeviceFst
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     dfst = DeviceFst.build(fst, arc_lanes=ARC_LANES)
     cfg = DecoderConfig(**{**SEARCH, **engine})
@@ -390,13 +482,15 @@ def phase_search(dev, fst, i2p, frames: int = FRAMES, **engine) -> dict:
         dev, "search", lambda d: TorchBeamSearch(dfst, i2p, cfg, device=d),
         fixed_loglikes(frames), lambda s, *out: s.traceback(*out, fst))
     live = (gout[0].tok_state >= 0).sum(1).float().mean().item()
+    rec["gather_per_frame"] = gathers_per_frame(g, dev)
     what = (f"v3, {g.lanes}-lane records" if g.lanes
             else f"v2 {g.mode}, {g.num_stages} stages")
     print(f"search card == CPU ({g.relax_impl}, {g.mode}): {what} over "
           f"{dfst.num_states} states; logs bit-identical, words and costs "
           f"equal for {len(gres)} utterances (mean live tokens at the end "
           f"{live:.1f}, words in utt 0: {len(gres[0]['words'])}); card "
-          f"kernel launches {rec['launches']}, "
+          f"kernel launches {rec['launches']} "
+          f"({rec['gather_per_frame']:g} gather launches a frame), "
           f"{rec['kernels_per_frame']:.0f} kernels/frame "
           f"({rec['device_ms_per_frame']:.3f} device ms/frame)")
     return rec
@@ -440,8 +534,8 @@ def serve_check(info, utts: int, label: str) -> dict:
     ``info``; every final reply must equal an in-process
     ``BatchedStreamingDecoder`` on the same waves and chunks.  Returns the
     kernel launches of the serve run."""
-    from asr_decoder_tpu.serving.client import AsyncAsrClient
-    from asr_decoder_tpu.serving.protocol import EndFlag
+    from asr_decoder_tpu_torch.serving.client import AsyncAsrClient
+    from asr_decoder_tpu_torch.serving.protocol import EndFlag
     from asr_decoder_tpu_torch.ops import fetch, gather
     from asr_decoder_tpu_torch.serving.batcher import BatchedStreamingDecoder
     from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
@@ -502,7 +596,7 @@ def serve_check(info, utts: int, label: str) -> dict:
 
 def make_words(num_words: int):
     """The symbol table <eps> = 0, then w<i> = i."""
-    from asr_decoder_tpu.fst.symbol import SymbolTable
+    from asr_decoder_tpu_torch.fst.symbol import SymbolTable
     words = SymbolTable()
     words.add("<eps>", 0)
     for w in range(1, num_words + 1):
@@ -511,7 +605,7 @@ def make_words(num_words: int):
 
 
 def phase_serve(dev, nnet, fst) -> dict:
-    from asr_decoder_tpu.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
     from asr_decoder_tpu_torch.cli._model import build_info
     from asr_decoder_tpu_torch.frontend.fbank import FbankConfig
     from asr_decoder_tpu_torch.models.nnet import AmConfig
@@ -542,7 +636,7 @@ def make_hmms(rng, n: int):
     """[None, hmm_1..hmm_n]: three-state linear-chain HMMs (a self-loop and
     a forward arc a state, an ε exit from the last), ilabels in
     [1, NUM_PDFS] (scored through the CTC map of ``make_graph``)."""
-    from asr_decoder_tpu.fst.fst import StdFst
+    from asr_decoder_tpu_torch.fst.fst import StdFst
     src = np.array([0, 0, 1, 1, 2, 2])
     dst = np.array([0, 1, 1, 2, 2, 2], np.int32)
     hmms = [None]
@@ -558,8 +652,8 @@ def make_hmms(rng, n: int):
 def make_difflm(device):
     """The BigLM difference G2 − G1 over two synthetic ARPA LMs whose word
     w<i> is id i — the graph's olabel i; <s>, </s> get ids above it."""
-    from asr_decoder_tpu.lm.arpa import parse_arpa
-    from asr_decoder_tpu.lm.synth_arpa import synth_arpa_text
+    from asr_decoder_tpu_torch.lm.arpa import parse_arpa
+    from asr_decoder_tpu_torch.lm.synth_arpa import synth_arpa_text
     from asr_decoder_tpu_torch.lm.device_lm import DeviceDiffLm
     word2id = {f"w{i}": i for i in range(1, LM_VOCAB + 1)}
     word2id.update({"<s>": LM_VOCAB + 1, "</s>": LM_VOCAB + 2})
@@ -568,14 +662,37 @@ def make_difflm(device):
     return fsas, lambda d: DeviceDiffLm.build(*fsas, device=d)
 
 
+def compaction_gathers(lm, N: int, lm_lanes: int) -> int:
+    """Gather launches of one BigLM LM application with compaction on
+    (``lm_lanes`` < N word-candidate lanes) at B = BATCH."""
+    from asr_decoder_tpu_torch.ops import gather
+    from asr_decoder_tpu_torch.ops.beamsearch_biglm import _apply_lm
+    dev = lm.lm1.table.device
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def ints(hi):
+        return torch.randint(0, hi, (BATCH, N), generator=gen, device=dev,
+                             dtype=torch.int32)
+    ol = torch.where(ints(10) == 0, ints(LM_VOCAB) + 1, 0)
+    args = (ol, ints(lm.lm1.fsa.num_states), ints(lm.lm2.fsa.num_states),
+            ints(GRAPH_STATES), torch.rand((BATCH, N), generator=gen,
+                                           device=dev), ints(512), ints(N))
+    gather.launches = 0
+    _apply_lm(lm, *args, lm_lanes=lm_lanes)
+    torch.cuda.synchronize()
+    print(f"biglm compaction: {gather.launches} gather launch for "
+          f"{len(args)} operands, [{BATCH},{N}] -> {lm_lanes} LM lanes")
+    return gather.launches
+
+
 def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     """Each graph type: the gather kernel at its table shapes, the search
     card against CPU, then a served run.  Returns the gather launches of
     the card searches and serve runs, and the gather's worst error."""
-    from asr_decoder_tpu.decoder.config import DecoderConfig
-    from asr_decoder_tpu.fst.clg import write_hmm_bundle
-    from asr_decoder_tpu.fst.device_fst import DeviceFst
-    from asr_decoder_tpu.fst.synthetic import random_hclg
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.fst.clg import write_hmm_bundle
+    from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
+    from asr_decoder_tpu_torch.fst.synthetic import random_hclg
     from asr_decoder_tpu_torch.cli._model import build_info
     from asr_decoder_tpu_torch.frontend.fbank import FbankConfig
     from asr_decoder_tpu_torch.models.nnet import AmConfig
@@ -591,13 +708,16 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     am_cfg = (FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP))
     total = {"gather": 0, "max_abs_err": 0.0}
 
+    floor = launch_floor_ms()
+
     def gather_rows(cases):
-        for V, N, what in cases:
-            for dtype in (torch.float32, torch.int32):
-                e, _, _, row = gather_case(gen, dev, BATCH, V, N, dtype,
-                                           f" ({what})")
-                total["max_abs_err"] = max(total["max_abs_err"], e)
-                print(row)
+        for V, N, P, what in cases:
+            for dtype in ((torch.float32, torch.int32) if P == 1
+                          else (torch.float32,)):
+                rec = gather_case(gen, dev, BATCH, V, N, dtype, f" ({what})",
+                                  P, floor)
+                total["max_abs_err"] = max(total["max_abs_err"],
+                                           rec["max_abs_err"])
 
     # --- clg: the CLI loader with --hmmfst-file -------------------------
     t0 = time.perf_counter()
@@ -624,7 +744,7 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     print(f"clg: {g.clg.num_states} CLG states, {g.clg.num_arcs} arcs, "
           f"{CLG_HMMS} HMMs, {info.search.num_stages - 1} ε sweeps, Ae = "
           f"{Ae}; built in {time.perf_counter() - t0:.1f} s")
-    gather_rows([(K * Ae + 2 * K, K, "clg ε table")])
+    gather_rows([(K * Ae + 2 * K, K, 2, "clg ε table")])
     _, gout, gres, rec = card_vs_cpu(
         dev, "clg search",
         lambda d: info.search if d == dev else TorchClgBeamSearch(
@@ -662,8 +782,10 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
           f"{cfg.lm_lanes} of K·A = {K * A} (safe bound "
           f"{s.lm_lanes_bound}); {s.num_stages - 1} ε sweeps; built in "
           f"{time.perf_counter() - t0:.1f} s")
-    gather_rows([(K * A, K * A, "biglm compaction"),
-                 (K * L + K, K, "biglm ε table")])
+    gather_rows([(K * A, K * A, 7, "biglm compaction"),
+                 (K * L + K, K, 2, "biglm ε table")])
+    check(compaction_gathers(lm, K * A, cfg.lm_lanes) == 1,
+          "the BigLM compaction is one gather launch")
     _, gout, gres, rec = card_vs_cpu(
         dev, "biglm search",
         lambda d: s if d == dev else TorchBigLmBeamSearch(
@@ -712,12 +834,18 @@ def main() -> int:
     fst, i2p = make_graph()
     v3 = phase_search(dev, fst, i2p)
     check(v3["launches"]["fetch"] > 0, "fetch kernel launched by v3")
+    # emit: acoustic lookup, top-K·F dst, ε bit, ε-first order, winners
+    # (cost, state, index); closure: top-K·F dst, winners (state, index)
+    check(v3["gather_per_frame"] == V3_GATHERS_PER_FRAME,
+          f"v3 gather launches a frame {v3['gather_per_frame']} == "
+          f"{V3_GATHERS_PER_FRAME}")
     for mode in ("closure", "sweeps"):
         v2 = phase_search(dev, fst, i2p, eps_mode=mode, relax_impl="sort")
         check(v2["launches"]["gather"] > 0,
               f"gather kernel launched by v2 {mode}")
     print(f"phase search done at {time.perf_counter() - t0:.1f} s")
-    nnet = make_flagship(0, feat_dim=FEAT_DIM, num_pdfs=NUM_PDFS)
+    nnet = make_flagship(0, feat_dim=FEAT_DIM, num_pdfs=NUM_PDFS,
+                         device=dev)
     phase_am(dev, nnet)
     print(f"phase am done at {time.perf_counter() - t0:.1f} s")
     launches = phase_serve(dev, nnet, fst)
@@ -732,12 +860,12 @@ def main() -> int:
     record = {"kernels": [
         dict(name="batched_table_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/gather.cu",
-             replaces="asr_decoder_tpu/ops/gather.py:42",
+             replaces="asr_decoder_tpu/ops/gather.py:43",
              launches=launches["gather"] + graph_types["gather"],
              **kernels["gather"]),
         dict(name="fetch_records", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
-             replaces="asr_decoder_tpu/ops/fetch.py:64",
+             replaces="asr_decoder_tpu/ops/fetch.py:65",
              launches=launches["fetch"], **kernels["fetch"]),
         dict(name="make_dma_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",

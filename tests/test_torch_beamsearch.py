@@ -21,9 +21,12 @@ from asr_decoder_tpu.decoder.config import DecoderConfig  # noqa: E402
 from asr_decoder_tpu.decoder.gold import GoldDecoder  # noqa: E402
 from asr_decoder_tpu.fst.device_fst import DeviceFst  # noqa: E402
 from asr_decoder_tpu.ops import beamsearch as J  # noqa: E402
+from asr_decoder_tpu_torch.fst.device_fst import \
+    DeviceFst as PortDeviceFst  # noqa: E402
 from asr_decoder_tpu_torch.ops import beamsearch as P  # noqa: E402
 
 from test_beamsearch import random_decode_graph  # noqa: E402
+from test_torch_host_copies import to_port  # noqa: E402
 
 
 def _cfg(**kw):
@@ -37,8 +40,9 @@ def _cfg(**kw):
 def _engines(fst, i2p, cfg):
     jax_s = J.TpuBeamSearch(DeviceFst.build(fst, arc_lanes=cfg.arc_lanes),
                             i2p, cfg)
-    port = P.TorchBeamSearch(DeviceFst.build(fst, arc_lanes=cfg.arc_lanes),
-                             i2p, cfg, device="cpu")
+    port = P.TorchBeamSearch(
+        PortDeviceFst.build(to_port(fst), arc_lanes=cfg.arc_lanes), i2p,
+        to_port(cfg), device="cpu")
     assert jax_s.relax_impl == "topk" and jax_s.num_stages == port.num_stages
     return jax_s, port
 
@@ -61,7 +65,7 @@ def _decode_both(fst, i2p, cfg, ll, mask=None):
     po = port.decode(ll, mask)
     _assert_same_run(jo, po)
     jr = jax_s.traceback(*jo, fst)
-    pr = port.traceback(*po, fst)
+    pr = port.traceback(*po, to_port(fst))
     assert pr == jr
     return port, po, pr
 
@@ -131,13 +135,13 @@ def test_streamed_chunks_equal_one_shot():
     _, port = _engines(fst, i2p, _cfg())
     ll = rng.standard_normal((2, 21, 9)).astype(np.float32) * 3
     st, il, logs = port.decode(ll)
-    want = port.traceback(st, il, logs, fst)
+    want = port.traceback(st, il, logs, to_port(fst))
     st2, il2 = port.init_state(2)
     chunks = []
     for lo, hi in ((0, 8), (8, 9), (9, 21)):
         st2, lg = port.advance(st2, ll[:, lo:hi])
         chunks.append(lg)
-    got = port.traceback(st2, il2, chunks, fst)
+    got = port.traceback(st2, il2, chunks, to_port(fst))
     assert got == want
 
 
@@ -151,7 +155,7 @@ def test_lattices_match_jax():
     _, jil, jlg = jax_s.decode(ll)
     _, pil, plg = port.decode(ll)
     jl = jax_s.get_lattices(jil, jlg, ll, fst)[0]
-    pl = port.get_lattices(pil, plg, ll, fst)[0]
+    pl = port.get_lattices(pil, plg, ll, to_port(fst))[0]
     assert sorted(pl.to_text().splitlines()) == \
         sorted(jl.to_text().splitlines())
 
@@ -244,5 +248,5 @@ def test_unported_configs_raise():
     i2p = np.arange(9, dtype=np.int32)
     for kw in (dict(gather_impl="xla"), dict(fetch_impl="dma")):
         with pytest.raises(ValueError, match="device"):
-            P.TorchBeamSearch(DeviceFst.build(fst, arc_lanes=8), i2p,
-                              _cfg(**kw), device="cpu")
+            P.TorchBeamSearch(PortDeviceFst.build(to_port(fst), arc_lanes=8),
+                              i2p, to_port(_cfg(**kw)), device="cpu")

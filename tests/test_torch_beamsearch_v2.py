@@ -25,9 +25,12 @@ from asr_decoder_tpu.decoder.gold import GoldDecoder  # noqa: E402
 from asr_decoder_tpu.fst.device_fst import DeviceFst  # noqa: E402
 from asr_decoder_tpu.fst.fst import StdFst  # noqa: E402
 from asr_decoder_tpu.ops import beamsearch as J  # noqa: E402
+from asr_decoder_tpu_torch.fst.device_fst import \
+    DeviceFst as PortDeviceFst  # noqa: E402
 from asr_decoder_tpu_torch.ops import beamsearch as P  # noqa: E402
 
 from test_beamsearch import random_decode_graph  # noqa: E402
+from test_torch_host_copies import to_port  # noqa: E402
 
 MODES = ["closure", "sweeps"]
 
@@ -43,8 +46,9 @@ def _cfg(**kw):
 def _engines(fst, i2p, cfg):
     jax_s = J.TpuBeamSearch(DeviceFst.build(fst, arc_lanes=cfg.arc_lanes),
                             i2p, cfg)
-    port = P.TorchBeamSearch(DeviceFst.build(fst, arc_lanes=cfg.arc_lanes),
-                             i2p, cfg, device="cpu")
+    port = P.TorchBeamSearch(
+        PortDeviceFst.build(to_port(fst), arc_lanes=cfg.arc_lanes), i2p,
+        to_port(cfg), device="cpu")
     assert (port.mode, port.relax_impl, port.num_stages) == \
         (jax_s.mode, jax_s.relax_impl, jax_s.num_stages)
     return jax_s, port
@@ -70,7 +74,7 @@ def _decode_both(fst, i2p, cfg, ll, mask=None):
     po = port.decode(ll, mask)
     _assert_same_run(jo, po)
     jr = jax_s.traceback(*jo, fst)
-    pr = port.traceback(*po, fst)
+    pr = port.traceback(*po, to_port(fst))
     assert pr == jr
     return port, po, pr
 
@@ -186,16 +190,17 @@ def test_streamed_chunks_equal_one_shot(eps_mode):
     rng = np.random.default_rng(8)
     fst = random_decode_graph(rng)
     i2p = np.arange(9, dtype=np.int32)
-    port = P.TorchBeamSearch(DeviceFst.build(fst, arc_lanes=8), i2p,
-                             _cfg(eps_mode=eps_mode), device="cpu")
+    port = P.TorchBeamSearch(PortDeviceFst.build(to_port(fst), arc_lanes=8),
+                             i2p, to_port(_cfg(eps_mode=eps_mode)),
+                             device="cpu")
     ll = rng.standard_normal((2, 21, 9)).astype(np.float32) * 3
-    want = port.traceback(*port.decode(ll), fst)
+    want = port.traceback(*port.decode(ll), to_port(fst))
     st, il = port.init_state(2)
     chunks = []
     for lo, hi in ((0, 8), (8, 9), (9, 21)):
         st, lg = port.advance(st, ll[:, lo:hi])
         chunks.append(lg)
-    assert port.traceback(st, il, chunks, fst) == want
+    assert port.traceback(st, il, chunks, to_port(fst)) == want
 
 
 @pytest.mark.parametrize("eps_mode", MODES)
@@ -209,7 +214,7 @@ def test_lattices_match_jax(eps_mode):
     _, jil, jlg = jax_s.decode(ll)
     _, pil, plg = port.decode(ll)
     for jl, pl in zip(jax_s.get_lattices(jil, jlg, ll, fst),
-                      port.get_lattices(pil, plg, ll, fst)):
+                      port.get_lattices(pil, plg, ll, to_port(fst))):
         assert sorted(pl.to_text().splitlines()) == \
             sorted(jl.to_text().splitlines())
 
@@ -276,7 +281,7 @@ def test_no_snapshots_matches_jax(eps_mode):
     port, (_, init_log, logs), _ = _decode_both(fst, i2p, cfg, ll)
     assert tuple(logs.tok_state.shape) == (9, 2, 0)
     with pytest.raises(RuntimeError, match="log_snapshots"):
-        port.get_lattices(init_log, logs, ll, fst)
+        port.get_lattices(init_log, logs, ll, to_port(fst))
 
 
 # -- the auto rules pick JAX's engine and mode ------------------------------
@@ -334,7 +339,7 @@ def test_auto_selection_matches_jax(case, want):
         (1, 6, len(i2p))).astype(np.float32)
     jo, po = jax_s.decode(ll), port.decode(ll)
     _assert_same_run(jo, po)
-    assert port.traceback(*po, fst) == jax_s.traceback(*jo, fst)
+    assert port.traceback(*po, to_port(fst)) == jax_s.traceback(*jo, fst)
 
 
 def test_selection_refusals_match_jax():
@@ -352,8 +357,8 @@ def test_selection_refusals_match_jax():
             J.TpuBeamSearch(DeviceFst.build(fst, arc_lanes=8), i2p,
                             _cfg(**kw))
         with pytest.raises(ValueError):
-            P.TorchBeamSearch(DeviceFst.build(fst, arc_lanes=8), i2p,
-                              _cfg(**kw), device="cpu")
+            P.TorchBeamSearch(PortDeviceFst.build(to_port(fst), arc_lanes=8),
+                              i2p, to_port(_cfg(**kw)), device="cpu")
 
 
 # -- the session in sweeps mode ---------------------------------------------

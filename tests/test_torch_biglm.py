@@ -28,6 +28,7 @@ from asr_decoder_tpu_torch.ops import beamsearch_biglm as P  # noqa: E402
 
 from test_biglm import _setup_biglm  # noqa: E402
 from test_lm import ARPA, ARPA2  # noqa: E402
+from test_torch_host_copies import to_port  # noqa: E402
 
 EXACT = 1 << 20
 
@@ -63,8 +64,9 @@ def _engines(fsas, seed, lm_lanes=EXACT, scales=(1.0, 1.0), **cfg_kw):
     js = J.TpuBigLmBeamSearch(dev, i2p, JL.DeviceDiffLm.build(*fsas, *scales),
                               cfg)
     ps = P.TorchBigLmBeamSearch(
-        dev, i2p, PL.DeviceDiffLm.build(*fsas, *scales, device="cpu"), cfg,
-        device="cpu")
+        to_port(dev), i2p,
+        PL.DeviceDiffLm.build(*to_port(fsas), *scales, device="cpu"),
+        to_port(cfg), device="cpu")
     return rng, fst, js, ps
 
 
@@ -103,7 +105,7 @@ def test_apply_lm_matches_jax(fsas, M):
                lm1_scale=1.0, lm2_scale=1.0)
     want = J._apply_lm(J._lm_tables(jlm), *map(jax.numpy.asarray, args),
                        cfg=cfg)
-    got = P._apply_lm(PL.DeviceDiffLm.build(*fsas, device="cpu"),
+    got = P._apply_lm(PL.DeviceDiffLm.build(*to_port(fsas), device="cpu"),
                       *map(torch.from_numpy, args), lm_lanes=M)
     _assert_same(want, got)
     n_words = ((ol > 0) & np.isfinite(cand)).sum(1)
@@ -123,7 +125,7 @@ def test_decode_matches_jax(fsas, seed, lm_lanes):
     mask[1, 8:] = False
     jo, po = js.decode(ll, mask), ps.decode(ll, mask)
     _assert_same(jo, po)
-    pres = ps.traceback(*po, fst)
+    pres = ps.traceback(*po, to_port(fst))
     assert pres == js.traceback(*jo, fst)
     assert pres[0]["overflowed"] == bool(po[2].overflow[:, 0].any())
     if lm_lanes == EXACT:
@@ -135,7 +137,7 @@ def test_overflow_flag_set_when_lanes_undersized(fsas):
     ll = (rng.standard_normal((2, 12, 7)) * 3).astype(np.float32)
     jo, po = js.decode(ll), ps.decode(ll)
     _assert_same(jo, po)
-    pres = ps.traceback(*po, fst)
+    pres = ps.traceback(*po, to_port(fst))
     assert pres == js.traceback(*jo, fst)
     assert all(r["overflowed"] for r in pres)
 
@@ -146,7 +148,8 @@ def test_decode_matches_jax_scaled(fsas):
     ll = (rng.standard_normal((2, 12, 7)) * 3).astype(np.float32)
     jo, po = js.decode(ll), ps.decode(ll)
     _assert_same(jo, po, cost_atol=1e-5)
-    for p, j in zip(ps.traceback(*po, fst), js.traceback(*jo, fst)):
+    for p, j in zip(ps.traceback(*po, to_port(fst)),
+                    js.traceback(*jo, fst)):
         assert p["words"] == j["words"] and p["arc_ids"] == j["arc_ids"]
         assert p["cost"] == pytest.approx(j["cost"], abs=1e-5)
 
@@ -181,7 +184,7 @@ def test_traceback_adds_final_lm_cost(fsas):
     rng, fst, js, ps = _engines(fsas, 0, scales=(1.0, 4.0))
     ll = (rng.standard_normal((1, 12, 7)) * 3).astype(np.float32)
     state, init_log, logs = ps.decode(ll)
-    res = ps.traceback(state, init_log, logs, fst)[0]
+    res = ps.traceback(state, init_log, logs, to_port(fst))[0]
     assert res["reached_final"]
     st, co, l1, l2 = (x.numpy()[0] for x in state)
     finals = np.where(st == ps.dev.final_state)[0]
@@ -198,19 +201,19 @@ def test_matches_gold_and_lattice(fsas, seed):
     """Best path against the host gold pair decoder; the raw lattice from
     the port's pair-token snapshots equals the JAX one and the gold one."""
     rng, fst, js, ps = _engines(fsas, seed, scales=(0.7, 1.3))
-    ps.config.lattice_beam = 6.0
+    ps.config.lattice_beam = js.config.lattice_beam = 6.0
     ll = (rng.standard_normal((12, 7)) * 3).astype(np.float32)
     gold = GoldBigLmDecoder(fst, ps._ilabel2pdf, *fsas, 0.7, 1.3,
-                            ps.config).decode(ll, want_lattice=True)
+                            js.config).decode(ll, want_lattice=True)
     state, init_log, logs = ps.decode(ll[None])
-    res = ps.traceback(state, init_log, logs, fst)[0]
+    res = ps.traceback(state, init_log, logs, to_port(fst))[0]
     assert not res["overflowed"]
     assert res["reached_final"] == gold.reached_final
     assert res["cost"] == pytest.approx(gold.cost, abs=1e-3)
     if gold.reached_final:
         assert res["words"] == gold.words
         assert res["ilabels"] == gold.ilabels
-    lat = ps.get_lattices(init_log, logs, ll[None], fst)[0]
+    lat = ps.get_lattices(init_log, logs, ll[None], to_port(fst))[0]
     assert sorted(lat.to_text().splitlines()) == \
         sorted(gold.lattice.to_text().splitlines())
     jo = js.decode(ll[None])

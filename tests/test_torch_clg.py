@@ -21,6 +21,7 @@ from asr_decoder_tpu.ops import beamsearch_clg as J  # noqa: E402
 from asr_decoder_tpu_torch.ops import beamsearch_clg as P  # noqa: E402
 
 from test_clg import make_clg  # noqa: E402
+from test_torch_host_copies import to_port  # noqa: E402
 
 I2P = np.arange(7, dtype=np.int32)
 
@@ -50,7 +51,7 @@ def _assert_same(jax_tree, port_tree):
 def test_graph_arrays_match_jax(seed):
     _, g = make_clg(seed)
     jg, jil = J.make_clg_graph_arrays(g, I2P)
-    pg, pil = P.make_clg_graph_arrays(g, I2P, "cpu")
+    pg, pil = P.make_clg_graph_arrays(to_port(g), I2P, "cpu")
     for name in ("clg_eps_rec", "arc_tab", "hmm_em_rec", "hmm_exit"):
         np.testing.assert_array_equal(getattr(pg, name).numpy(),
                                       np.asarray(getattr(jg, name)))
@@ -86,7 +87,7 @@ def test_stages_match_jax(seed, beam, min_active):
     """The emitting stage and one ε sweep, slot for slot."""
     rng, g = make_clg(seed)
     jg, _ = J.make_clg_graph_arrays(g, I2P)
-    pg, _ = P.make_clg_graph_arrays(g, I2P, "cpu")
+    pg, _ = P.make_clg_graph_arrays(to_port(g), I2P, "cpu")
     B, K = 3, 16
     cfg = dict(K=K, Ah=int(pg.hmm_em_rec.shape[1]) // 3,
                Ae=int(pg.clg_eps_rec.shape[1]) // 3, offset=g.offset,
@@ -106,7 +107,8 @@ def test_stages_match_jax(seed, beam, min_active):
 def _engines(seed, cfg):
     rng, g = make_clg(seed)
     return (rng, g, J.TpuClgBeamSearch(g, I2P, cfg),
-            P.TorchClgBeamSearch(g, I2P, cfg, device="cpu"))
+            P.TorchClgBeamSearch(to_port(g), I2P, to_port(cfg),
+                                 device="cpu"))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -163,7 +165,8 @@ def test_log_snapshots_off():
     """Zero-width snapshots, the same traceback, and lattices refused."""
     rng, g, _, ps = _engines(2, _cfg())
     ll = (rng.standard_normal((2, 8, 7)) * 3).astype(np.float32)
-    off = P.TorchClgBeamSearch(g, I2P, _cfg(log_snapshots=False),
+    off = P.TorchClgBeamSearch(to_port(g), I2P,
+                               to_port(_cfg(log_snapshots=False)),
                                device="cpu")
     state, init_log, logs = off.decode(ll)
     assert tuple(logs.tok_state.shape) == (8, 2, 0)

@@ -25,6 +25,7 @@ from asr_decoder_tpu.lm.synth_arpa import synth_arpa_text  # noqa: E402
 from asr_decoder_tpu_torch.lm import device_lm as P  # noqa: E402
 
 from test_lm import ARPA, ARPA2  # noqa: E402
+from test_torch_host_copies import to_port  # noqa: E402
 
 
 def _synth(seed=3):
@@ -49,10 +50,12 @@ def _bits(a):
 
 @pytest.mark.parametrize("which", ["arpa", "arpa2", "synth"])
 def test_tables_match_jax(fsas, which):
-    """The state carried across from JAX: the same host Fsa builds the same
-    tables and bounds, array for array."""
+    """The state carried across from JAX: the same host Fsa (the port's
+    copy, carried across as arrays) builds the same tables and bounds,
+    array for array."""
     fsa = fsas[which]
-    j, p = J.DeviceNgramLm.build(fsa), P.DeviceNgramLm.build(fsa, "cpu")
+    pfsa = to_port(fsa)
+    j, p = J.DeviceNgramLm.build(fsa), P.DeviceNgramLm.build(pfsa, "cpu")
     for name in ("table", "uni", "backoff"):
         t = getattr(p, name)
         assert t.dtype == torch.int32 and t.device.type == "cpu"
@@ -60,7 +63,7 @@ def test_tables_match_jax(fsas, which):
                                       t.numpy())
     for name in ("start", "root", "levels", "max_probes", "mask"):
         assert getattr(p, name) == getattr(j, name), name
-    assert p.fsa is fsa
+    assert p.fsa is pfsa
 
 
 def test_hash2_matches_jax_with_overflow():
@@ -91,7 +94,8 @@ def test_get_arc_matches_jax_and_host(fsas, which):
     the vocabulary whose hashes overflow — against JAX bit for bit, and
     against the host backoff chase."""
     fsa = fsas[which]
-    j, p = J.DeviceNgramLm.build(fsa), P.DeviceNgramLm.build(fsa, "cpu")
+    j = J.DeviceNgramLm.build(fsa)
+    p = P.DeviceNgramLm.build(to_port(fsa), "cpu")
     S, V = fsa.num_states, max(fsa.vocab.values())
     words = np.concatenate([np.arange(-2, V + 4), [2**20, 2**31 - 1]])
     s, w = (a.ravel().astype(np.int32)
@@ -116,7 +120,8 @@ def test_get_arc_matches_jax_and_host(fsas, which):
 def test_diff_lm_matches_jax(fsas, scales):
     fsa1, fsa2 = fsas["arpa"], fsas["arpa2"]
     j = J.DeviceDiffLm.build(fsa1, fsa2, *scales)
-    p = P.DeviceDiffLm.build(fsa1, fsa2, *scales, device="cpu")
+    p = P.DeviceDiffLm.build(to_port(fsa1), to_port(fsa2), *scales,
+                             device="cpu")
     assert p.start == j.start
     rng = np.random.default_rng(5)
     n = 500

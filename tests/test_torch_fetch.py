@@ -72,3 +72,25 @@ def test_fetch_kernel_matches_plain(cuda, S, L):
     for g, w in zip(_live_rows(got.cpu().numpy(), live),
                     _live_rows(want.cpu().numpy(), live)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [32, 64])
+@pytest.mark.parametrize("B,K", [(16, 512), (3, 37), (1, 4096), (256, 512)])
+def test_fetch_narrow_kernel_live_counts(cuda, L, B, K):
+    """The 32- and 64-lane records at the search's (B, K) and ragged ones:
+    live 0, partial and full (every row live in the last case), states out
+    of range clamped, the live rows bit-exact."""
+    table, state, live = _inputs(5000, L, B, K, seed=B + K + L)
+    rng = np.random.default_rng(L)
+    state = np.where(rng.random(state.shape) < 0.05, 5000 + 7, state)
+    if B == 256:
+        live[:] = K
+        state = rng.integers(-2, 5002, (B, K)).astype(np.int32)
+    t, s, lv = (torch.from_numpy(a).to(cuda) for a in (table, state, live))
+    got = F.fetch_records(t, s, lv)
+    want = F.fetch_plain(t, s)
+    torch.cuda.synchronize()
+    for g, w in zip(_live_rows(got.cpu().numpy(), live),
+                    _live_rows(want.cpu().numpy(), live)):
+        np.testing.assert_array_equal(g, w)

@@ -62,7 +62,7 @@ def test_gather_kernel_matches_plain(cuda, V, N, dtype):
     t, i = torch.from_numpy(table).to(cuda), torch.from_numpy(idx).to(cuda)
     before = G.launches
     got = G.batched_table_gather(t, i)
-    want = G.gather_plain(t, i)
+    (want,) = G.gather_plain_many((t,), i)
     torch.cuda.synchronize()
     assert G.launches == before + 1
     assert got.dtype == t.dtype and got.shape == (32, N)
@@ -82,7 +82,76 @@ def test_gather_kernel_at_graph_type_shapes(cuda, V, N, dtype):
     t, i = torch.from_numpy(table).to(cuda), torch.from_numpy(idx).to(cuda)
     before = G.launches
     got = G.batched_table_gather(t, i)
-    want = G.gather_plain(t, i)
+    (want,) = G.gather_plain_many((t,), i)
     torch.cuda.synchronize()
     assert G.launches == before + 1
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _many_inputs(P, B, V, N, seed, offset=0):
+    """P tables [B, V] (f32 and i32 in turn, every bit pattern) and one
+    index [B, N] with out-of-range values mixed in; ``offset`` words in
+    front of each array's storage shift its rows off 16-byte alignment."""
+    rng = np.random.default_rng(seed)
+    tables = []
+    for p in range(P):
+        t = rng.standard_normal(B * V + offset).astype(np.float32)
+        t = torch.from_numpy(t)[offset:].view(B, V)
+        tables.append(t if p % 2 == 0 else t.view(torch.int32))
+    idx = rng.integers(-3, V + 3, B * N + offset).astype(np.int32)
+    return tables, torch.from_numpy(idx)[offset:].view(B, N)
+
+
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_gather_many_matches_jax(P):
+    """Each output of the multi-table form equals the JAX gather of its
+    table (both JAX paths), bit for bit."""
+    pytest.importorskip("jax")
+    from asr_decoder_tpu.ops.gather import batched_table_gather as jax_gather
+    tables, idx = _many_inputs(P, 4, 300, 130, seed=P)
+    idx = idx.clamp(0, 299)
+    got = G.batched_table_gather_many(tables, idx)
+    assert len(got) == P
+    for t, g in zip(tables, got):
+        assert g.dtype == t.dtype and g.shape == (4, 130)
+        for force in ("xla", "interpret"):
+            want = np.asarray(jax_gather(t.numpy(), idx.numpy(),
+                                         force=force))
+            np.testing.assert_array_equal(g.view(torch.int32).numpy(),
+                                          want.view(np.int32))
+
+
+def test_gather_many_rejects_bad_inputs():
+    idx = torch.zeros((2, 3), dtype=torch.int32)
+    t = torch.zeros((2, 8))
+    with pytest.raises(ValueError):
+        G.batched_table_gather_many([], idx)
+    with pytest.raises(ValueError):
+        G.batched_table_gather_many([t] * 9, idx)
+    with pytest.raises(ValueError):
+        G.batched_table_gather_many([t, torch.zeros((2, 9))], idx)
+    with pytest.raises(TypeError):
+        G.batched_table_gather_many([t, t.long()], idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", range(1, 9))
+@pytest.mark.parametrize("B,V,N,offset", [
+    (1, 2048, 4096, 0), (3, 1001, 37, 0), (2, 1001, 516, 1),
+    (2, 30000, 515, 0), (5, 6, 1029, 3), (32, 8192, 4096, 0),
+    (256, 2048, 4096, 0)])
+def test_gather_many_kernel_matches_plain(cuda, P, B, V, N, offset):
+    """Against the plain version over clamped indices, one launch: V and N
+    not multiples of 4 and rows and indices off 16-byte alignment (the
+    scalar path), B = 1, block sizes from 32 to 256 threads, P = 1..8."""
+    tables, idx = _many_inputs(P, B, V, N, seed=P * V + N, offset=offset)
+    tables = [t.to(cuda) for t in tables]
+    idx = idx.to(cuda)
+    want = G.gather_plain_many(tables, idx.clamp(0, V - 1))
+    before = G.launches
+    got = G.batched_table_gather_many(tables, idx)
+    torch.cuda.synchronize()
+    assert G.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == (B, N)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))

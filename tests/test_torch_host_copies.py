@@ -1,0 +1,408 @@
+"""The port's own copies of the JAX package's host modules
+(``asr_decoder_tpu_torch/{fst,decoder,lm,utils,serving,frontend,align,eval,
+models}``) against their originals, and the port's independence from the
+JAX package.
+
+Tolerance: none.  Each copy runs the original's numpy code unchanged, so
+the same seeded inputs give equal arrays, equal bytes and equal text; a
+file written by either package loads in the other to equal contents.
+
+``to_port`` carries a JAX-package host object across as arrays: the other
+port tests use it so that whatever goes into a port function is an object
+of the port's own classes.
+"""
+
+import ast
+import dataclasses
+import importlib
+import struct
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import asr_decoder_tpu_torch.align.word_align as PA
+import asr_decoder_tpu_torch.decoder.config as PC
+import asr_decoder_tpu_torch.decoder.raw_lattice as PR
+import asr_decoder_tpu_torch.eval.synth_task as PS
+import asr_decoder_tpu_torch.frontend.audio as PAU
+import asr_decoder_tpu_torch.fst.clg as PCLG
+import asr_decoder_tpu_torch.fst.ctc_graph as PCTC
+import asr_decoder_tpu_torch.fst.determinize as PD
+import asr_decoder_tpu_torch.fst.device_fst as PDF
+import asr_decoder_tpu_torch.fst.fst as PF
+import asr_decoder_tpu_torch.fst.nbest as PN
+import asr_decoder_tpu_torch.fst.symbol as PSY
+import asr_decoder_tpu_torch.fst.synthetic as PSYN
+import asr_decoder_tpu_torch.lm.arpa as PARPA
+import asr_decoder_tpu_torch.lm.synth_arpa as PSA
+import asr_decoder_tpu_torch.models.transition as PT
+import asr_decoder_tpu_torch.serving.protocol as PP
+import asr_decoder_tpu_torch.utils.config as PCO
+import asr_decoder_tpu_torch.utils.wer as PW
+import asr_decoder_tpu.align.word_align as JA
+import asr_decoder_tpu.decoder.config as JC
+import asr_decoder_tpu.decoder.raw_lattice as JR
+import asr_decoder_tpu.eval.synth_task as JS
+import asr_decoder_tpu.frontend.audio as JAU
+import asr_decoder_tpu.fst.clg as JCLG
+import asr_decoder_tpu.fst.ctc_graph as JCTC
+import asr_decoder_tpu.fst.determinize as JD
+import asr_decoder_tpu.fst.device_fst as JDF
+import asr_decoder_tpu.fst.fst as JF
+import asr_decoder_tpu.fst.nbest as JN
+import asr_decoder_tpu.fst.symbol as JSY
+import asr_decoder_tpu.fst.synthetic as JSYN
+import asr_decoder_tpu.lm.arpa as JARPA
+import asr_decoder_tpu.lm.synth_arpa as JSA
+import asr_decoder_tpu.models.transition as JT
+import asr_decoder_tpu.serving.protocol as JP
+import asr_decoder_tpu.utils.config as JCO
+import asr_decoder_tpu.utils.wer as JW
+
+from test_lattice_ops import random_lattice
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "asr_decoder_tpu_torch"
+
+
+def to_port(obj):
+    """``obj`` with every JAX-package host object in it rebuilt as the
+    port's class of the same module path and name, attribute for
+    attribute (arrays copied)."""
+    if isinstance(obj, np.ndarray):
+        return obj.copy()
+    if isinstance(obj, dict):
+        return {k: to_port(v) for k, v in obj.items()}
+    mod = type(obj).__module__
+    if mod.startswith("asr_decoder_tpu."):
+        cls = getattr(importlib.import_module(
+            "asr_decoder_tpu_torch." + mod.partition(".")[2]),
+            type(obj).__qualname__)
+        if isinstance(obj, tuple):                  # NamedTuple
+            return cls(*map(to_port, obj))
+        new = object.__new__(cls)
+        new.__dict__.update({k: to_port(v) for k, v in vars(obj).items()})
+        return new
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map(to_port, obj))
+    return obj
+
+
+def assert_same(j, p):
+    """Equal contents, recursively; a port object against its original."""
+    if isinstance(j, np.ndarray):
+        assert isinstance(p, np.ndarray) and j.dtype == p.dtype
+        np.testing.assert_array_equal(j, p)
+    elif isinstance(j, dict):
+        assert j.keys() == p.keys()
+        for k in j:
+            assert_same(j[k], p[k])
+    elif type(j).__module__.startswith("asr_decoder_tpu."):
+        assert type(p).__module__ == "asr_decoder_tpu_torch." + \
+            type(j).__module__.partition(".")[2]
+        assert type(p).__qualname__ == type(j).__qualname__
+        if isinstance(j, tuple):
+            assert_same(tuple(j), tuple(p))
+        else:
+            assert vars(j).keys() == vars(p).keys()
+            for k in vars(j):
+                assert_same(vars(j)[k], vars(p)[k])
+    elif isinstance(j, (list, tuple)):
+        assert type(j) is type(p) and len(j) == len(p)
+        for a, b in zip(j, p):
+            assert_same(a, b)
+    else:
+        assert j == p
+
+
+# -- the port imports nothing of the JAX package ---------------------------
+
+def _imported_modules(path: Path) -> set[str]:
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            out.add(node.module)
+    return out
+
+
+def test_port_sources_import_no_jax_package():
+    """An AST scan of every file of the port and of ``chip_smoke.py``: no
+    import of ``asr_decoder_tpu`` (any module of it) or of ``jax``."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 40
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imported_modules(f)
+           if m.split(".")[0] in ("asr_decoder_tpu", "jax", "jaxlib")]
+    assert not bad, bad
+
+
+# -- each copy against its original ---------------------------------------
+
+def _graph(mod, seed=3):
+    return mod.random_hclg(np.random.default_rng(seed), num_states=300,
+                           num_ilabels=30, num_words=40)
+
+
+def case_random_hclg(tmp_path):
+    assert_same(_graph(JSYN), _graph(PSYN))
+
+
+def case_std_fst_binary(tmp_path):
+    """A StdFst binary written by either package loads in the other."""
+    j, p = _graph(JSYN), _graph(PSYN)
+    j.write_binary(str(tmp_path / "j.fst"))
+    p.write_binary(str(tmp_path / "p.fst"))
+    assert (tmp_path / "j.fst").read_bytes() == \
+        (tmp_path / "p.fst").read_bytes()
+    assert_same(j, PF.StdFst.read_binary(str(tmp_path / "j.fst")))
+    assert_same(JF.StdFst.read_binary(str(tmp_path / "p.fst")), p)
+
+
+def case_device_fst_npz(tmp_path):
+    """DeviceFst.build (split CSR, ε depth, closure) equal, and a saved
+    ``.npz`` loads in the other package."""
+    j = JDF.DeviceFst.build(_graph(JSYN), arc_lanes=4)
+    p = PDF.DeviceFst.build(_graph(PSYN), arc_lanes=4)
+    j.build_closure()
+    p.build_closure()
+    assert_same(j, p)
+    j.save(str(tmp_path / "j.npz"))
+    p.save(str(tmp_path / "p.npz"))
+    assert_same(j, PDF.DeviceFst.load(str(tmp_path / "j.npz")))
+    assert_same(JDF.DeviceFst.load(str(tmp_path / "p.npz")), p)
+
+
+def case_hmm_bundle(tmp_path):
+    """``write_hmm_bundle`` bytes equal; each package reads the other's
+    bundle into an equal ClgFst."""
+    rng = np.random.default_rng(5)
+    hmms = [None]
+    for _ in range(4):                # linear chains with an ε exit
+        n = int(rng.integers(2, 4))
+        src = np.repeat(np.arange(n), 2)[:-1]
+        dst = np.minimum(src + np.arange(len(src)) % 2, n - 1)
+        il = rng.integers(1, 7, len(src)).astype(np.int32)
+        il[-1] = 0
+        hmms.append(JF.StdFst.from_arcs(
+            n, 0, n - 1, src, il, np.zeros(len(src), np.int32),
+            rng.random(len(src)).astype(np.float32), dst.astype(np.int32)))
+    JCLG.write_hmm_bundle(str(tmp_path / "j.hmm"), hmms)
+    PCLG.write_hmm_bundle(str(tmp_path / "p.hmm"), to_port(hmms))
+    assert (tmp_path / "j.hmm").read_bytes() == \
+        (tmp_path / "p.hmm").read_bytes()
+    clg = _graph(JSYN, seed=6)
+    clg.arc_ilabel[clg.arc_ilabel > 4] = 1
+    clg.write_binary(str(tmp_path / "clg.fst"))
+    j = JCLG.ClgFst.load(str(tmp_path / "clg.fst"), str(tmp_path / "p.hmm"))
+    p = PCLG.ClgFst.load(str(tmp_path / "clg.fst"), str(tmp_path / "j.hmm"))
+    assert_same(j, p)
+    assert j.eps_depth() == p.eps_depth()
+
+
+def case_protocol(tmp_path):
+    """Wire bytes of both packages' C2S and S2C packages are equal and
+    each unpacks the other's."""
+    pcm = np.random.default_rng(7).integers(-3000, 3000, 480) \
+        .astype(np.int16)
+
+    def packages(M):
+        return [M.C2SPackage.from_samples(pcm, audio_head=True, nbest=3,
+                                          ali_info=True, n=5),
+                M.S2CPackage(M.EndFlag.END, ali_info=True, warn=True,
+                             lattice=b"lat", results=[
+                                 M.NbestResult("w1 w2", 1.5, -2.25, [1, 2]),
+                                 M.NbestResult("w3", 0.5, 0.0, [3])],
+                             align=[("w1", 0.0, 0.25), ("w2", 0.25, 0.5)])]
+    jb = [k.pack() for k in packages(JP)]
+    assert jb == [k.pack() for k in packages(PP)]
+    assert jb[1] == PP.S2CPackage.unpack(jb[1]).pack()
+    assert jb[1] == JP.S2CPackage.unpack(packages(PP)[1].pack()).pack()
+    head = jb[0][:PP.C2SPackage.head_size()]
+    jh, jn = JP.C2SPackage.unpack_head(head)
+    ph, pn = PP.C2SPackage.unpack_head(head)
+    assert jn == pn and jh.pack() == ph.pack()
+
+
+def case_audio(tmp_path):
+    """A 22.05 kHz stereo WAV payload decodes to equal 16 kHz samples."""
+    x = (np.random.default_rng(8).standard_normal((2205, 2)) * 3000) \
+        .astype("<i2")
+    data = x.tobytes()
+    wav = (b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE" + b"fmt "
+           + struct.pack("<IHHIIHH", 16, 1, 2, 22050, 22050 * 4, 4, 16)
+           + b"data" + struct.pack("<I", len(data)) + data)
+    assert_same(JAU.decode_audio(wav), PAU.decode_audio(wav))
+
+
+def _arpa_text(mod):
+    return mod.synth_arpa_text(vocab_size=30, n_bigram=60, n_trigram=25,
+                               seed=4)
+
+
+def case_arpa(tmp_path):
+    """``synth_arpa_text`` equal; ``parse_arpa`` gives equal Fsas, and an
+    Fsa binary written by either package loads in the other."""
+    text = _arpa_text(JSA)
+    assert text == _arpa_text(PSA)
+    j, p = JARPA.parse_arpa(text), PARPA.parse_arpa(text)
+    assert_same(j, p)
+    j.write_binary(str(tmp_path / "j.lm"))
+    p.write_binary(str(tmp_path / "p.lm"))
+    assert_same(j, PARPA.Fsa.read_binary(str(tmp_path / "j.lm")))
+    assert_same(JARPA.Fsa.read_binary(str(tmp_path / "p.lm")), p)
+
+
+def case_decoder_config(tmp_path):
+    """Every field, its type and its default."""
+    jf = [(f.name, f.type, f.default) for f in
+          dataclasses.fields(JC.DecoderConfig)]
+    assert jf == [(f.name, f.type, f.default) for f in
+                  dataclasses.fields(PC.DecoderConfig)]
+
+
+def case_config_options(tmp_path):
+    """A command line and a config file parse to equal values."""
+    conf = tmp_path / "dec.conf"
+    conf.write_text("--beam=11.5\n--eps-mode=sweeps  # a comment\n")
+    argv = [f"--config={conf}", "--beam-width=96", "--log-snapshots=false",
+            "--dec.lattice-beam=3", "pos1", "--min-active=7", "pos2"]
+    got = []
+    for CO, C in ((JCO, JC), (PCO, PC)):
+        opts, a, b = CO.ConfigOptions("u"), C.DecoderConfig(), \
+            C.DecoderConfig()
+        a.register(opts)
+        b.register(opts, "dec")
+        got.append((opts.parse(argv), dataclasses.asdict(a),
+                    dataclasses.asdict(b)))
+    assert got[0] == got[1]
+
+
+def case_symbol_table(tmp_path):
+    j = JSY.SymbolTable()
+    for i, w in enumerate(["<eps>", "a", "b", "zz"]):
+        j.add(w, i * 3)
+    j.write_text(str(tmp_path / "w.txt"))
+    p = PSY.SymbolTable.read_text(str(tmp_path / "w.txt"))
+    p.write_text(str(tmp_path / "p.txt"))
+    assert (tmp_path / "p.txt").read_text() == \
+        (tmp_path / "w.txt").read_text()
+    assert_same(j, p)
+
+
+def case_word_spans(tmp_path):
+    g = _graph(JSYN)
+    rng = np.random.default_rng(9)
+    arcs = rng.integers(0, g.num_arcs, 40)
+    for anchor in ("start", "end"):
+        spans = JA.word_spans(arcs, g.arc_ilabel, g.arc_olabel, 5, anchor)
+        assert spans == PA.word_spans(arcs, g.arc_ilabel.copy(),
+                                      g.arc_olabel.copy(), 5, anchor)
+        assert spans
+
+
+def case_raw_lattice(tmp_path):
+    """The pruned raw lattice from per-frame token sets (what the
+    searches' logs turn into) has the same text."""
+    rng = np.random.default_rng(10)
+    fst = JSYN.random_hclg(rng, num_states=12, num_ilabels=8, num_words=5)
+    T = 6
+    toks = [{int(s): float(c) for s, c in zip(
+        rng.choice(fst.num_states, 6, replace=False), rng.random(6) * 4)}
+        for _ in range(T + 1)]
+    toks[0] = {fst.start: 0.0}
+    ll = rng.standard_normal((T, 9)).astype(np.float32)
+    i2p = np.arange(9, dtype=np.int32)
+    jl = JR.lattice_from_token_sets(fst, toks, ll, i2p,
+                                    JC.DecoderConfig(lattice_beam=1e9))
+    pl = PR.lattice_from_token_sets(to_port(fst), toks, ll, i2p,
+                                    PC.DecoderConfig(lattice_beam=1e9))
+    assert (jl is None) == (pl is None)
+    if jl is not None:
+        assert jl.to_text() == pl.to_text()
+        assert jl.to_bytes() == pl.to_bytes()
+
+
+def case_determinize_nbest(tmp_path):
+    """``determinize_lattice`` then ``nshortest`` on random lattices: the
+    same lattice text and the same n-best paths."""
+    for seed in range(3):
+        lat = random_lattice(np.random.default_rng(seed))
+        plat = to_port(lat)
+        assert lat.to_bytes() == plat.to_bytes()
+        jd, pd = JD.determinize_lattice(lat), PD.determinize_lattice(plat)
+        assert jd.to_text() == pd.to_text()
+        assert_same(JN.nshortest(jd, 4), PN.nshortest(pd, 4))
+
+
+def case_synth_task_ctc_graph(tmp_path):
+    """``SynthTask`` (lexicon, costs, templates, sampled batches) and the
+    CTC decode graph built over its lexicon, flat and trie-shared."""
+    j, p = JS.SynthTask(seed=2), PS.SynthTask(seed=2)
+    assert_same(j, p)
+    jb, pb = (t.sample_batch(np.random.default_rng(3), 3, 200, 30)
+              for t in (j, p))
+    assert_same(jb, pb)
+    for share in (False, True):
+        jg = JCTC.build_ctc_decode_graph(j.lexicon, j.word_costs,
+                                         j.num_phones, share)
+        pg = PCTC.build_ctc_decode_graph(p.lexicon, p.word_costs,
+                                         p.num_phones, share)
+        assert_same(jg, pg)
+
+
+_TOPO = """<TransitionModel>
+<Topology>
+<TopologyEntry>
+<ForPhones> 1 2 </ForPhones>
+<State> 0 <PdfClass> 0 <Transition> 0 0.5 <Transition> 1 0.5 </State>
+<State> 1 <PdfClass> 1 <Transition> 1 0.5 <Transition> 2 0.5 </State>
+<State> 2 </State>
+</TopologyEntry>
+</Topology>
+<Triples> 4
+1 0 0
+1 1 1
+2 0 2
+2 1 3
+</Triples>
+</TransitionModel>
+"""
+
+
+def case_transition_model(tmp_path):
+    """A Kaldi text transition model read by both, the ilabel maps, and
+    each package's text writer read back by the other."""
+    j = JT.TransitionModel.read_stream(JT.KaldiStream(_TOPO.encode()))
+    p = PT.TransitionModel.read_stream(PT.KaldiStream(_TOPO.encode()))
+    for shift in (False, True):
+        assert_same(j.ilabel_map(shift), p.ilabel_map(shift))
+    j.write_text(str(tmp_path / "j.mdl"))
+    p.write_text(str(tmp_path / "p.mdl"))
+    assert (tmp_path / "j.mdl").read_text() == \
+        (tmp_path / "p.mdl").read_text()
+    pj = PT.TransitionModel.read(str(tmp_path / "j.mdl"))
+    jp = JT.TransitionModel.read(str(tmp_path / "p.mdl"))
+    assert_same(jp.ilabel_map(), pj.ilabel_map())
+    assert [pj.transition_id_to_pdf(t) for t in range(1, 9)] == \
+        [j.transition_id_to_pdf(t) for t in range(1, 9)]
+
+
+def case_score_pair(tmp_path):
+    rng = np.random.default_rng(11)
+    for _ in range(20):
+        ref = rng.integers(0, 5, int(rng.integers(0, 8))).tolist()
+        hyp = rng.integers(0, 5, int(rng.integers(0, 8))).tolist()
+        assert dataclasses.asdict(JW.score_pair(ref, hyp)) == \
+            dataclasses.asdict(PW.score_pair(ref, hyp))
+
+
+CASES = {name[5:]: fn for name, fn in list(globals().items())
+         if name.startswith("case_")}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_copy_matches_original(case, tmp_path):
+    CASES[case](tmp_path)

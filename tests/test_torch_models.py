@@ -66,7 +66,7 @@ def test_layer_matches_jax(kind):
     params, din, dout, meta = _params(kind, rng)
     jl = JL.Layer({k: jnp.asarray(v) for k, v in params.items()}, kind, din,
                   dout, meta)
-    pl = PN.from_numpy_layers(_carry([jl])).layers[0]
+    pl = PN.from_numpy_layers(_carry([jl]), device="cpu").layers[0]
     x = rng.standard_normal((3, 7, din)).astype(np.float32)
     # recurrent layers start from a non-zero carry, as mid-stream
     jstate = jax.tree.map(
@@ -95,7 +95,7 @@ def _small_flagship(seed=0):
     {"do_softmax": False, "do_log": False, "sub_prior": False}])
 def test_am_forward_matches_jax(kw):
     jnet = _small_flagship()
-    pnet = PN.from_numpy_layers(_carry(jnet.layers))
+    pnet = PN.from_numpy_layers(_carry(jnet.layers), device="cpu")
     x = np.random.default_rng(1).standard_normal((2, 11, 16)).astype(
         np.float32)
     jy, jst = JN.am_forward(jnet.layers, jnp.asarray(x), jnet.init_state(2),
@@ -123,7 +123,7 @@ def test_binary_format_shared(tmp_path):
                                    48, 48))
     jpath, ppath = tmp_path / "jax.nnet", tmp_path / "port.nnet"
     jnet.write_binary(str(jpath))
-    pnet = PN.Nnet.read_binary(str(jpath))
+    pnet = PN.Nnet.read_binary(str(jpath), device="cpu")
     pnet.write_binary(str(ppath))
     assert jpath.read_bytes() == ppath.read_bytes()
     assert [l.kind for l in pnet.layers] == [l.kind for l in jnet.layers]
@@ -140,9 +140,9 @@ def test_binary_format_shared(tmp_path):
 
 def test_port_flagship_shape_and_seed():
     a = port_flagship(7, feat_dim=16, num_pdfs=32, hidden=16, proj=8,
-                      num_layers=2)
+                      num_layers=2, device="cpu")
     b = port_flagship(7, feat_dim=16, num_pdfs=32, hidden=16, proj=8,
-                      num_layers=2)
+                      num_layers=2, device="cpu")
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
     x = torch.randn(2, 9, 16, generator=torch.Generator().manual_seed(0))

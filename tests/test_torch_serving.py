@@ -36,25 +36,29 @@ from asr_decoder_tpu_torch.serving.session import (  # noqa: E402
     word_alignment)
 
 from test_session import make_info, make_wave  # noqa: E402
+from test_torch_host_copies import to_port  # noqa: E402
 
 
 def port_info(jinfo) -> OnlineDecoderInfo:
-    """The port's info over the JAX info's model, graph and configs (for
-    ``clg`` the same ClgFst, for ``biglm-hclg`` a DeviceDiffLm over the
-    same host LMs and scales)."""
+    """The port's info over the JAX info's model, graph and configs, all
+    carried across as arrays into the port's own classes (for ``clg`` the
+    same ClgFst, for ``biglm-hclg`` a DeviceDiffLm over the same host LMs
+    and scales)."""
     layers = [(l.kind, l.input_dim, l.output_dim, l.meta,
                {k: np.asarray(v) for k, v in l.params.items()})
               for l in jinfo.nnet.layers]
     kw = {}
     if jinfo.config.graph_type == "clg":
-        kw["clg_graph"] = jinfo.search.g
+        kw["clg_graph"] = to_port(jinfo.search.g)
     elif jinfo.config.graph_type == "biglm-hclg":
         d = jinfo.search.difflm
-        kw["difflm"] = DeviceDiffLm.build(d.lm1.fsa, d.lm2.fsa, d.lm1_scale,
+        kw["difflm"] = DeviceDiffLm.build(to_port(d.lm1.fsa),
+                                          to_port(d.lm2.fsa), d.lm1_scale,
                                           d.lm2_scale, device="cpu")
     return OnlineDecoderInfo(
-        from_numpy_layers(layers), jinfo.fst, jinfo.words, jinfo.ilabel2pdf,
-        decoder_config=jinfo.decoder_config,
+        from_numpy_layers(layers, device="cpu"), to_port(jinfo.fst),
+        to_port(jinfo.words), jinfo.ilabel2pdf,
+        decoder_config=to_port(jinfo.decoder_config),
         online_config=OnlineDecoderConfig(**asdict(jinfo.config)),
         fbank_config=FbankConfig(**asdict(jinfo.fbank_config)),
         am_config=AmConfig(**asdict(jinfo.am_config)), device="cpu", **kw)
@@ -220,24 +224,26 @@ def test_server_answers_concurrent_clients(infos):
 def test_unported_configs_raise(infos):
     """The energy VAD is not ported; every graph type is, and one that
     lacks its graph is refused."""
-    jinfo, _ = infos
+    _, pinfo = infos
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         OnlineDecoderInfo(
-            from_numpy_layers([]), jinfo.fst, jinfo.words, jinfo.ilabel2pdf,
+            from_numpy_layers([], device="cpu"), pinfo.fst, pinfo.words,
+            pinfo.ilabel2pdf,
             online_config=OnlineDecoderConfig(use_energy_vad=True),
             device="cpu")
     for kw in (dict(graph_type="clg"), dict(graph_type="biglm-hclg"),
                dict(graph_type="hmm")):
         with pytest.raises(ValueError):
             OnlineDecoderInfo(
-                from_numpy_layers([]), jinfo.fst, jinfo.words,
-                jinfo.ilabel2pdf, online_config=OnlineDecoderConfig(**kw),
+                from_numpy_layers([], device="cpu"), pinfo.fst, pinfo.words,
+                pinfo.ilabel2pdf, online_config=OnlineDecoderConfig(**kw),
                 device="cpu")
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, its ``tools/perf`` included (and
-    the shared host modules it uses), leaves jax out of the process."""
+    """Importing every module of the port, its ``tools/perf`` and its own
+    copies of the host modules included, leaves jax and every module of
+    the JAX package ``asr_decoder_tpu`` out of the process."""
     code = (
         "import sys, pkgutil, importlib, asr_decoder_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
@@ -245,7 +251,9 @@ def test_port_imports_no_jax():
         "for m in mods: importlib.import_module(m)\n"
         "assert 'asr_decoder_tpu_torch.serving.server' in mods\n"
         "assert 'asr_decoder_tpu_torch.tools.perf.bench_points' in mods\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
+        "assert 'asr_decoder_tpu_torch.fst.device_fst' in mods\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'asr_decoder_tpu'))\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -399,10 +407,10 @@ def test_biglm_server_warns_on_lm_lane_overflow():
 def test_build_info_loads_clg_with_hmmfst_file(tmp_path):
     """``--graph-type=clg --hmmfst-file=...``: the CLI loader reads the CLG
     layer and the HMM bundle and serves like an info built in process."""
-    from asr_decoder_tpu.fst.clg import write_hmm_bundle
-    from asr_decoder_tpu.utils.config import ConfigOptions
     from asr_decoder_tpu_torch.cli._model import (build_info,
                                                   register_info_flags)
+    from asr_decoder_tpu_torch.fst.clg import write_hmm_bundle
+    from asr_decoder_tpu_torch.utils.config import ConfigOptions
     _, pinfo = graph_infos("clg")
     g = pinfo.search.g
     paths = {n: str(tmp_path / n) for n in ("am", "clg", "hmm", "words")}
