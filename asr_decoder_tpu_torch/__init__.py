@@ -27,10 +27,20 @@ Ported (module for module):
   models/layers.py, nnet.py    — all 13 layer kinds, the Nnet binary format,
                                  am_forward; models/flagship.py: make_flagship
   frontend/fbank.py            — fbank, streaming fbank, live/utterance CMVN
-  frontend/pipeline.py         — fbank + CMVN + deltas (no pitch)
+  frontend/pitch.py            — Kaldi pitch: resampler, NCCF, Viterbi lag
+                                 tracking, POV post-processing, StreamPitch,
+                                 ArbitraryResample (full f32 on the card)
+  frontend/pipeline.py         — fbank + CMVN (‖ pitch) (+ deltas)
+  vad/energy.py, model_vad.py  — the energy VAD and the nnet VAD (window
+                                 sums on the device, the hysteresis FSM on
+                                 the host), the segment post-ops
+  wakeup/dtw.py                — keyword wakeup by posterior DTW
   serving/session.py, batcher.py, server.py — the streaming serve path
                                  (hclg, clg and biglm-hclg graphs, one
-                                 device)
+                                 device), with energy-VAD endpointing:
+                                 MIDDLEEND replies, text and alignment
+                                 accumulated across segments
+  serving/v1_session.py        — the VAD-orchestrated V1 session
   cli/_model.py, serve.py, decode.py (``--hmmfst-file`` loads a clg graph)
   utils/profiling.py           — torch.profiler ranges and Chrome traces
   tools/perf/*.py              — the search microbenches and operating-point
@@ -40,15 +50,20 @@ Ported (module for module):
 Copied from ``asr_decoder_tpu`` (host-only numpy; the same code, imports
 rewritten, file formats unchanged): ``fst/{fst,semiring,symbol,lattice,
 determinize,nbest,device_fst,clg,ctc_graph,synthetic}.py``,
-``decoder/{config,raw_lattice}.py``, ``lm/{arpa,synth_arpa}.py``,
-``utils/{config,logging,wer}.py``, ``serving/{protocol,client}.py``,
-``frontend/audio.py``, ``align/word_align.py``, ``eval/synth_task.py``,
+``decoder/{config,raw_lattice}.py``, ``lm/{arpa,synth_arpa,compose}.py``,
+``utils/{config,logging,wer}.py``, ``serving/{protocol,client,
+post_service}.py`` (the post service keeps only the Python n-shortest),
+``cli/{lmscore,post_serve}.py``, ``frontend/audio.py``,
+``align/{word_align,phone_to_word}.py``, ``eval/synth_task.py``,
 ``models/transition.py``.
 
-Not ported yet (raise ``NotImplementedError`` where a config reaches them):
-pitch, VAD (and so endpointing); nor ``serving/v1_session.py``,
-``serving/post_service.py``, CTC training, multi-device, ``bench.py`` and
-``eval.py``.
+Not ported yet (ROADMAP §1): ``bench.py``/``eval.py`` and
+``eval/harness.py``, CTC training (``ctc_train_step``), multi-device
+(``parallel/*``), ``decoder/{gold,ref_parity}.py``,
+``fst/{algorithms,tlg,native_nbest}.py``, the ``arpa2fsa``,
+``convert_graph``, ``lat_compose`` and ``lmrescale`` CLIs and
+``__main__.py``, ``utils/timer.py``, ``serving/native_client.py`` and
+``native/*``.
 """
 
 __version__ = "0.1.0"

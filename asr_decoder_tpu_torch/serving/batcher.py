@@ -20,6 +20,12 @@ stream to the host while tick t+1 computes), with its slot-reuse fault
 repaired: ``release`` delivers the pending logs first, so a slot acquired
 again never inherits its previous channel's last logs.
 
+With ``use_energy_vad`` each channel keeps its own energy VAD and trailing
+silence: ``endpoint_detected(cid)`` applies the session's endpoint rule, and
+``init_decoding(cid)`` restarts one channel's search mid-stream (its
+feature and AM state kept), delivering the pending logs first, as
+``release`` does.
+
 Beam and logs are handled generically over the three searches (hclg, clg,
 biglm-hclg), by the JAX rule: the beam is a NamedTuple of [B, ...] lanes;
 every log leaf has the frame axis T first, then ``[stages, B, ...]`` for a
@@ -40,7 +46,8 @@ from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    lattice_from_logs,
                                                    merge_logs,
                                                    nbest_from_lattice,
-                                                   to_host)
+                                                   to_host,
+                                                   trailing_silence)
 
 
 def _channel_rows(a: np.ndarray, cid: int, frames: int | None = None
@@ -71,6 +78,8 @@ class _Channel:
     chunk_logs: list = field(default_factory=list)     # host logs
     loglikes: list[np.ndarray] = field(default_factory=list)
     frames_decoded: int = 0
+    vad: object = None             # EnergyVadStream (endpointing) or None
+    trailing_sil: int = 0
 
 
 @dataclass
@@ -135,13 +144,19 @@ class BatchedStreamingDecoder:
         info = self.info
         self._channels[cid] = _Channel(
             front=info.make_frontend(batch=1),
-            featbuf=FeatureBuffer(info.left, info.right, info.splice_offsets))
-        for arena, row in zip(self._beam, self._beam_init_row):
-            arena[cid] = row[0]
+            featbuf=FeatureBuffer(info.left, info.right, info.splice_offsets),
+            vad=info.make_vad())
+        self._reset_beam_row(cid)
         for st in self._am_state:
             for v in st.values():
                 v[cid] = 0.0
         return cid
+
+    def _reset_beam_row(self, cid: int) -> None:
+        """Row ``cid`` of every beam lane back to the initial beam (each
+        search's beam is a NamedTuple of [B, ...] lanes)."""
+        for arena, row in zip(self._beam, self._beam_init_row):
+            arena[cid] = row[0]
 
     def release(self, cid: int) -> None:
         if self._channels[cid] is None:
@@ -152,6 +167,31 @@ class BatchedStreamingDecoder:
         self._channels[cid] = None
         self._free.append(cid)
 
+    @torch.inference_mode()
+    def init_decoding(self, cid: int) -> None:
+        """Restart channel ``cid``'s search only, keeping its feature and
+        AM streaming state — the mid-stream endpoint restart (ref
+        InitDecoding(frame_offset), kaldi-online-nnet3-my-decoder.h
+        :301-324).  The pending tick's logs are delivered first, so they
+        are dropped with the finished segment's."""
+        self._flush_logs()
+        ch = self._channels[cid]
+        if ch is None:
+            raise ValueError(f"channel {cid} is not acquired")
+        self._reset_beam_row(cid)
+        ch.chunk_logs = []
+        ch.loglikes = []
+        ch.frames_decoded = 0
+
+    def endpoint_detected(self, cid: int) -> bool:
+        """The session's endpoint rule over channel ``cid`` (ref
+        EndpointDetected, kaldi-online-nnet3-my-decoder.h:344); needs
+        use_energy_vad."""
+        self._flush_logs()
+        ch = self._channels[cid]
+        return ch is not None and self.info.endpoint(ch.frames_decoded,
+                                                     ch.trailing_sil)
+
     # -- streaming input (host frontend, ref DynamicBatcher::Push) ---------
     def push(self, cid: int, pcm: np.ndarray, eos: bool = False) -> None:
         ch = self._channels[cid]
@@ -159,6 +199,7 @@ class BatchedStreamingDecoder:
             raise ValueError(f"channel {cid} is not open for input")
         info = self.info
         pcm = np.asarray(pcm, np.float32).reshape(1, -1)
+        ch.trailing_sil = trailing_silence(ch.vad, pcm, eos, ch.trailing_sil)
         feats = ch.front.accept(pcm, end=eos)[0]
         spliced = ch.featbuf.accept(feats, end=eos)
         # plain skip drops frames here; skip_copy subsamples inside

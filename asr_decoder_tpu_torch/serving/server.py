@@ -14,8 +14,16 @@ Connections are asyncio coroutines that push PCM into their channel of one
 tick one batched AM+search dispatch over every channel with a ready chunk.
 Every arena call runs on a one-thread executor (the arena is
 single-writer); result building (traceback, lattice, n-best) runs on a
-result pool over host snapshots.  Mid-stream endpoints need the energy VAD,
-which is not ported yet, so every reply before the last is a partial.
+result pool over host snapshots.
+
+With ``use_energy_vad``, a reply whose push ends in an endpoint (trailing
+silence, ``BatchedStreamingDecoder.endpoint_detected``) is a ``MIDDLEEND``
+final of the segment: its words and alignment are folded into the
+connection's prefix, later replies carry the prefix before their own
+segment, the segment's alignment is offset by the frames decoded before it,
+and the channel's search restarts (``init_decoding``) while its features
+and AM state stream on (ref: MIDDLEEND + InitDecoding(frame_offset) and the
+v1 worker's _best_result accumulation, kaldi-v1-asr-online.h:795-840).
 """
 
 from __future__ import annotations
@@ -193,6 +201,10 @@ class AsrServer:
         stats = UttStats()
         sr = 16000
         strikes = 0
+        # text/align of the finished segments, prepended to later replies
+        prefix_words: list[int] = []
+        prefix_align: list = []
+        prefix_frames = 0
         try:
             while True:
                 try:
@@ -222,15 +234,20 @@ class AsrServer:
                     self._chan_events[cid] = asyncio.Event()
                     stats = UttStats()
                     sr = pkg.sample_rate.hz
+                    prefix_words, prefix_align, prefix_frames = [], [], 0
                 samples = pkg.samples()
                 stats.wav_seconds += len(samples) / sr
                 t0 = time.monotonic()
                 await self._run(self._batcher.push, cid, samples,
                                 bool(pkg.end_flag))
                 await self._pump(cid)
+                endpoint = (not pkg.end_flag and await self._run(
+                    self._batcher.endpoint_detected, cid))
                 # snapshot under the device writer, build results off it
                 snap = await self._run(self._batcher.snapshot, cid)
-                reply = await self._run_result(self._results, snap, pkg)
+                reply, seg_words, seg_align = await self._run_result(
+                    self._results, snap, pkg, bool(pkg.end_flag) or endpoint,
+                    prefix_words, prefix_align, prefix_frames)
                 stats.work_seconds += time.monotonic() - t0
                 writer.write(frame_s2c(reply))
                 await writer.drain()
@@ -242,6 +259,13 @@ class AsrServer:
                     self.total.work_seconds += stats.work_seconds
                     await self._close_channel(cid)
                     cid = None
+                elif endpoint:
+                    # mid-stream endpoint: fold the finished segment into
+                    # the prefix, restart the search, keep the stream
+                    prefix_words = prefix_words + seg_words
+                    prefix_align = prefix_align + seg_align
+                    prefix_frames += snap.frames_decoded
+                    await self._run(self._batcher.init_decoding, cid)
         finally:
             if cid is not None:
                 await self._close_channel(cid)
@@ -254,23 +278,35 @@ class AsrServer:
         self._chan_events.pop(cid, None)
         self._chan_sem.release()
 
-    def _results(self, snap: ChannelSnapshot, pkg: C2SPackage) -> S2CPackage:
+    def _results(self, snap: ChannelSnapshot, pkg: C2SPackage, final: bool,
+                 prefix_words: list[int], prefix_align: list,
+                 prefix_frames: int) -> tuple[S2CPackage, list[int], list]:
         """Build the S2C reply from a channel snapshot (ref:
         v2-asr-task.h SendDataAndGetResult); runs on the result pool and
-        reads only the snapshot and read-only model state."""
-        final = bool(pkg.end_flag)
-        reply = S2CPackage(end_flag=EndFlag.END if final else EndFlag.NOEND)
+        reads only the snapshot and read-only model state.  ``final`` is
+        the end of the stream or of an endpointed segment.  Returns (reply,
+        segment words, segment alignment) for the caller to fold into the
+        prefix at an endpoint."""
+        end = (EndFlag.END if pkg.end_flag
+               else EndFlag.MIDDLEEND if final else EndFlag.NOEND)
+        reply = S2CPackage(end_flag=end)
         words = self.info.words
+        prefix_text = " ".join(words.words(prefix_words))
+
+        def with_prefix(text: str) -> str:
+            return f"{prefix_text} {text}".strip() if prefix_text else text
+
         best = self._batcher.get_best_path_from(snap)
+        seg_words = list(best.get("words", []))
         if final and pkg.nbest > 1:
             for r in self._batcher.get_nbest_from(snap, pkg.nbest):
                 reply.results.append(NbestResult(
-                    r["text"], r["graph_cost"], r["am_cost"], r["words"]))
+                    with_prefix(r["text"]), r["graph_cost"], r["am_cost"],
+                    prefix_words + r["words"]))
         if not reply.results:
-            best_words = list(best.get("words", []))
             reply.results.append(NbestResult(
-                " ".join(words.words(best_words)), best.get("cost", 0.0),
-                0.0, best_words))
+                with_prefix(" ".join(words.words(seg_words))),
+                best.get("cost", 0.0), 0.0, prefix_words + seg_words))
         if best.get("overflowed"):
             # BigLM lm_lanes overflow dropped word candidates of this
             # utterance: never silent (the reference never drops, ref
@@ -279,10 +315,16 @@ class AsrServer:
             reply.warn = True
             LOG.warning("biglm lm_lanes overflow on this utterance: "
                         "results may be inexact (raise lm_lanes)")
+        # per-word time spans (ref AlignTime, net-data-package.h:210) are
+        # computed at every reply that can fold a segment into the prefix,
+        # so a client asking for them only on its last chunk still gets
+        # every segment's; a clg graph has no arc-labelled fst, so its
+        # replies carry none
+        seg_align: list = []
+        if self.info.fst is not None:
+            seg_align = word_alignment(self.info, best, prefix_frames)
         if pkg.ali_info and self.info.fst is not None:
-            # per-word time spans (ref AlignTime, net-data-package.h:210);
-            # a clg graph has no arc-labelled fst, so its replies carry none
-            reply.align = word_alignment(self.info, best)
+            reply.align = prefix_align + seg_align
             reply.ali_info = True
         if pkg.score_info:
             # (graph, acoustic) costs ride every NbestResult already
@@ -292,7 +334,7 @@ class AsrServer:
             if lat is not None:
                 reply.lattice = lat.to_bytes()
                 reply.do_rescore = self.config.advertise_rescore
-        return reply
+        return reply, seg_words, seg_align
 
 
 def run_server(info: OnlineDecoderInfo,

@@ -2,17 +2,20 @@
 
 Port of ``asr_decoder_tpu/serving/session.py`` (ref:
 ``OnlineClgLatticeFastDecoder``, src/kaldi-nnet3/kaldi-online-nnet3-my-
-decoder.h:233-344): chunked 16-bit PCM in → features → AM posteriors →
-beam search → partial/final text, n-best, lattice.  Device work runs in
-fixed ``chunk_frames`` windows on ``info.device``, under
+decoder.h:233-344, and the VAD orchestration of ``V1AsrWorker``,
+src/v1-asr/kaldi-v1-asr-online.h:235): chunked 16-bit PCM in → features
+(fbank, optionally ‖ pitch and deltas) → AM posteriors → beam search →
+partial/final text, n-best, lattice; endpoint detection from the energy
+VAD's trailing silence (``use_energy_vad``); mid-stream re-initialisation
+after an endpoint (``init_decoding``, ref ``InitDecoding(frame_offset)``,
+kaldi-online-nnet3-my-decoder.h:301-324).  Device work runs in fixed
+``chunk_frames`` windows on ``info.device``, under
 ``torch.inference_mode()``.
 
 All three graph types are ported: ``hclg`` (``TorchBeamSearch``), ``clg``
 (``TorchClgBeamSearch``) and ``biglm-hclg`` (``TorchBigLmBeamSearch``).
 Their tracebacks and lattices take different arguments, so the helpers
-below dispatch on the graph type.  The energy VAD (``use_energy_vad``)
-raises ``NotImplementedError`` (ROADMAP §1); without it there is no
-endpointing, so sessions have no ``endpoint_detected`` yet.
+below dispatch on the graph type.
 """
 
 from __future__ import annotations
@@ -32,11 +35,13 @@ from asr_decoder_tpu_torch.fst.symbol import SymbolTable
 from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.frontend.fbank import CmvnConfig, FbankConfig
 from asr_decoder_tpu_torch.frontend.pipeline import StreamingFrontend
+from asr_decoder_tpu_torch.frontend.pitch import ProcessPitchConfig
 from asr_decoder_tpu_torch.models.nnet import (AmConfig, Nnet, am_forward,
                                                blank_frame_mask)
 from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
 from asr_decoder_tpu_torch.ops.beamsearch_biglm import TorchBigLmBeamSearch
 from asr_decoder_tpu_torch.ops.beamsearch_clg import TorchClgBeamSearch
+from asr_decoder_tpu_torch.vad.energy import EnergyVadConfig, EnergyVadStream
 
 
 @dataclass
@@ -120,6 +125,11 @@ class OnlineDecoderInfo:
       * ``biglm-hclg`` — ``fst`` plus ``difflm`` (``lm/device_lm.py``
         DeviceDiffLm, its tables on ``device``): in-search
         difference-LM rescoring.
+
+    ``vad_config`` sets the energy VAD that ``use_energy_vad`` turns on;
+    ``pitch_config`` (with ``process_pitch_config``, defaulted when None)
+    appends Kaldi pitch to the fbank features (the ``DnnPitchFeat`` stack,
+    ref: src/nnet/nnet-feature-api.h:86-185).
     """
 
     def __init__(self, nnet: Nnet, fst: StdFst | None, words: SymbolTable,
@@ -129,13 +139,11 @@ class OnlineDecoderInfo:
                  fbank_config: FbankConfig | None = None,
                  am_config: AmConfig | None = None,
                  cmvn_config: CmvnConfig | None = None,
-                 delta_config=None, clg_graph=None, difflm=None, *, device):
+                 delta_config=None, clg_graph=None, difflm=None,
+                 vad_config: EnergyVadConfig | None = None,
+                 pitch_config=None, process_pitch_config=None, *, device):
         self.device = torch.device(device)
         self.config = online_config or OnlineDecoderConfig()
-        if self.config.use_energy_vad:
-            raise NotImplementedError(
-                "use_energy_vad is not ported to asr_decoder_tpu_torch yet "
-                "(ROADMAP §1: pitch, VAD and wakeup)")
         self.decoder_config = decoder_config or DecoderConfig()
         gt = self.config.graph_type
         lanes = self.decoder_config.arc_lanes
@@ -166,6 +174,11 @@ class OnlineDecoderInfo:
         self.am_config = am_config or AmConfig()
         self.cmvn_config = cmvn_config  # None = no live CMVN
         self.delta_config = delta_config
+        self.vad_config = vad_config or EnergyVadConfig()
+        self.pitch_config = pitch_config
+        self.process_pitch_config = process_pitch_config
+        if pitch_config is not None and process_pitch_config is None:
+            self.process_pitch_config = ProcessPitchConfig()
         if self.am_config.skip_copy and self.am_config.skip:
             assert self.config.chunk_frames % (self.am_config.skip + 1) == 0, \
                 "skip_copy needs chunk_frames divisible by skip+1 (chunks " \
@@ -192,11 +205,28 @@ class OnlineDecoderInfo:
 
     def make_frontend(self, batch: int = 1) -> StreamingFrontend:
         """Streaming frontend for one session/channel: fbank (+CMVN)
-        (+ deltas) on this info's device."""
+        (‖ pitch) (+ deltas) on this info's device."""
         return StreamingFrontend(self.fbank_config, batch=batch,
+                                 pitch_cfg=self.pitch_config,
+                                 ppitch_cfg=self.process_pitch_config,
                                  delta_cfg=self.delta_config,
                                  cmvn_cfg=self.cmvn_config,
                                  device=self.device)
+
+    def make_vad(self) -> EnergyVadStream | None:
+        """The energy VAD of one session/channel, or None without
+        ``use_energy_vad``."""
+        if not self.config.use_energy_vad:
+            return None
+        return EnergyVadStream(self.vad_config, batch=1, device=self.device)
+
+    def endpoint(self, frames_decoded: int, trailing_sil: int) -> bool:
+        """The endpoint rule (ref: EndpointDetected,
+        kaldi-online-nnet3-my-decoder.h:344): enough frames decoded and
+        enough trailing silence."""
+        cfg = self.config
+        return (frames_decoded >= cfg.min_endpoint_frames
+                and trailing_sil >= cfg.endpoint_sil_frames)
 
     def init_am_state(self, batch: int) -> list[dict]:
         return [l.init_state(batch, self.device) for l in self.am_layers]
@@ -294,6 +324,20 @@ def merge_logs(chunk_logs: list):
         for i in range(len(chunk_logs[0]))))
 
 
+def trailing_silence(vad: EnergyVadStream | None, pcm: np.ndarray,
+                     eos: bool, prev: int) -> int:
+    """Push ``pcm`` f32[1, n] through ``vad`` and return the stream's
+    trailing SIL frame count: ``prev`` plus this push's decisions when they
+    are all silence, else the silence after its last AUDIO frame."""
+    if vad is None or not pcm.shape[1]:
+        return prev
+    decisions = vad.accept(pcm, end=eos)[0]
+    audio = np.flatnonzero(decisions)
+    if not len(audio):
+        return prev + len(decisions)
+    return len(decisions) - 1 - int(audio[-1])
+
+
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A host copy that shares no memory with ``t``."""
     return t.to("cpu", copy=True).numpy()
@@ -312,6 +356,7 @@ class OnlineDecoderSession:
     def __init__(self, info: OnlineDecoderInfo):
         self.info = info
         self._front = info.make_frontend(batch=1)
+        self._vad = info.make_vad()
         self.reset()
 
     # -- lifecycle ---------------------------------------------------------
@@ -319,21 +364,27 @@ class OnlineDecoderSession:
         """Full per-utterance reset (ref: Reset + ResetRnnBuffer)."""
         info = self.info
         self._front.reset()
+        if self._vad is not None:
+            self._vad.reset()
+        self._trailing_sil = 0
         self._featbuf = FeatureBuffer(info.left, info.right,
                                       info.splice_offsets)
         self._am_state = info.init_am_state(1)
         self._skip_phase = 0
+        self._pending: list[np.ndarray] = []
         self.init_decoding()
 
     def init_decoding(self) -> None:
         """Restart the search only, keeping feature/AM streaming state —
-        the VAD-cut resumption (ref: InitDecoding(frame_offset))."""
+        the VAD-cut resumption (ref: InitDecoding(frame_offset)).  Frames
+        not yet scored stay queued for the next segment, as in the
+        arena's ``init_decoding`` (the JAX session drops them, so its
+        segments after an endpoint differ from its server's)."""
         beam, init_log = self.info.search.init_state(1)
         self._beam = beam
         self._init_log = host_log(init_log)
         self._chunk_logs: list = []
         self._loglikes: list[np.ndarray] = []
-        self._pending: list[np.ndarray] = []
         self.num_frames_decoded = 0
 
     # -- streaming input ---------------------------------------------------
@@ -342,6 +393,8 @@ class OnlineDecoderSession:
         (ref: ProcessData)."""
         info = self.info
         pcm = np.asarray(pcm, np.float32).reshape(1, -1)
+        self._trailing_sil = trailing_silence(self._vad, pcm, eos,
+                                              self._trailing_sil)
         feats = self._front.accept(pcm, end=eos)[0]
         spliced = self._featbuf.accept(feats, end=eos)
         # frame subsampling with a persistent phase so chunk boundaries
@@ -418,3 +471,11 @@ class OnlineDecoderSession:
 
     def get_nbest_txt(self, n: int) -> list[str]:
         return [r["text"] for r in self.get_nbest(n)]
+
+    # -- endpointing --------------------------------------------------------
+    def endpoint_detected(self) -> bool:
+        """True when trailing silence meets the endpoint rule (ref:
+        EndpointDetected, kaldi-online-nnet3-my-decoder.h:344; needs
+        use_energy_vad)."""
+        return self.info.endpoint(self.num_frames_decoded,
+                                  self._trailing_sil)

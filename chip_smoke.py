@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the streaming-serve
-path, the v2 search engine, and the ``tools/perf`` row-gather microbenches.
+path, the v2 search engine, the ``tools/perf`` row-gather microbenches, the
+graph types, and the VAD-driven serve path.
 
     python3 chip_smoke.py
 
@@ -43,13 +44,30 @@ sources in this checkout, then:
      gather launch for its seven operands, then 8 concurrent 4-second
      utterances served (``clg`` through the CLI loader's
      ``--hmmfst-file``), every reply equal to the in-process batcher, the
-     gather kernel launching in each run.
+     gather kernel launching in each run;
+  8. the VAD-driven serve path: the flagship AM reading 80 fbank + 3 pitch
+     features over the 200k-state graph with ``use_energy_vad`` (endpoint
+     after 50 silent frames, not before 30 decoded); 8 concurrent clients
+     each stream speech, >= 1 s of silence below ``energy_threshold1`` and
+     speech, in 0.1-0.25 s pushes: every stream gets a ``MIDDLEEND``, its
+     replies carry the finished segments' words before the live one's, and
+     all equal per-stream ``OnlineDecoderSession``s on the card (endpoint
+     pushes, segment words); the search kernels launch.  Then card against
+     CPU: energy-VAD decisions exactly, streamed pitch features within
+     ``PITCH_TOL`` with equal Viterbi lag paths (2 short streams),
+     ``V1AsrSession`` segments and frames fed to the AM exactly (2
+     streams), ``VadNnetStream`` decisions exactly, ``WakeupSearch`` firing
+     and the DTW costs within ``DTW_TOL``; it prints the phase's wall time
+     and RTF, pitch ms per push at 1 s and at the end of a stream, VAD ms
+     per push, the pitch Viterbi's kernels per push, and the wall time
+     from the first silent push to its ``MIDDLEEND`` reply.
 
 Any failed check raises, so the script exits non-zero; it never falls back
 to the CPU.  Its last two lines are the kernels' JSON record (the five TPU
-kernels: the gather with its launches in the serve and graph-types runs,
-the fetch with its serve-run launches, the three microbench row gathers
-with their tool-path launches, each with its bound and library time) and
+kernels: the gather with its launches in the serve, graph-types and VAD
+serve runs, the fetch with its launches in the serve and VAD serve runs,
+the three microbench row gathers with their tool-path launches, each with
+its bound and library time) and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
 of the JAX package ``asr_decoder_tpu`` (the port keeps its own copies of
 the host modules), which it checks at the end of the run.
@@ -109,6 +127,14 @@ LM2 = dict(vocab_size=LM_VOCAB, n_bigram=200_000, n_trigram=100_000,
            seed=12)
 GT_UTTS = 8
 PROFILE_FRAMES = 4                 # frames profiled for kernels/frame
+# phase 8, the VAD-driven serve path
+PITCH_DIM = 3                      # POV, normalized log pitch, delta pitch
+VAD_STREAMS = 8
+SIL_S = 1.2                        # silence between the two speech parts
+PUSH_SAMPLES = (1600, 4000)        # 0.1-0.25 s pushes
+CPU_STREAMS = 2                    # streams of the pitch and V1 CPU runs
+PITCH_TOL = 1e-4                   # atol = rtol, the CPU tests' tolerance
+DTW_TOL = 1e-5                     # atol = rtol: fp32 cumsums in another order
 
 
 def check(ok: bool, what: str) -> None:
@@ -810,6 +836,350 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     return total
 
 
+
+# ----------------------------------------------------------------------
+# phase 8: the VAD-driven serve path
+# ----------------------------------------------------------------------
+
+def vad_streams(seed: int = 8):
+    """VAD_STREAMS int16-valued waves — a voiced, gliding harmonic tone in
+    noise (RMS ~2,500), SIL_S of noise at RMS 20 (below energy_threshold1,
+    327.68), the tone again — with each wave's push boundaries and the
+    sample where its silence starts."""
+    rng = np.random.default_rng(seed)
+
+    def speech(secs, f0):
+        t = np.arange(int(16000 * secs)) / 16000
+        ph = 2 * np.pi * np.cumsum(f0 * (1 + 0.3 * np.sin(2 * np.pi * 0.7
+                                                          * t))) / 16000
+        return (3000 * np.sin(ph) + 1500 * np.sin(2 * ph)
+                + 800 * np.sin(3 * ph) + 400 * rng.standard_normal(len(t)))
+    out = []
+    for i in range(VAD_STREAMS):
+        a = speech(1.3 + 0.05 * i, 100 + 10 * i)
+        w = np.concatenate([a, 20 * rng.standard_normal(int(16000 * SIL_S)),
+                            speech(1.2 + 0.05 * i, 180 - 8 * i)])
+        w = np.clip(np.round(w), -32768, 32767).astype(np.int16)
+        cuts, lo = [], 0
+        while lo < len(w):
+            hi = min(len(w), lo + int(rng.integers(PUSH_SAMPLES[0],
+                                                   PUSH_SAMPLES[1] + 1)))
+            cuts.append((lo, hi))
+            lo = hi
+        out.append((w, cuts, len(a)))
+    return out
+
+
+def run_segments(session, wave, cuts) -> tuple[list, list]:
+    """Push ``wave`` in ``cuts`` through an ``OnlineDecoderSession``,
+    restarting its search at each endpoint as the server does: (the
+    endpoint flag of every push, (words, frames) of every segment)."""
+    flags, segs = [], []
+    for lo, hi in cuts:
+        eos = hi >= len(wave)
+        session.process_data(wave[lo:hi].astype(np.float32), eos=eos)
+        ep = not eos and session.endpoint_detected()
+        flags.append(ep)
+        if ep or eos:
+            segs.append((session.get_best_path()["words"],
+                         session.num_frames_decoded))
+            if ep:
+                session.init_decoding()
+    return flags, segs
+
+
+def profile_cuda(fn) -> tuple[int, float]:
+    """(CUDA kernels, memsets and copies included, and their device ms) of
+    one call of ``fn``, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from asr_decoder_tpu_torch.tools.perf.profile_production import \
+        _device_us
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    return sum(e.count for e in ops), sum(_device_us(e) for e in ops) / 1e3
+
+
+def vad_info(dev, fst, i2p):
+    """The phase's OnlineDecoderInfo on ``dev``: the flagship AM (seed 1)
+    over 80 fbank + 3 pitch features, the energy VAD on."""
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.frontend.fbank import FbankConfig
+    from asr_decoder_tpu_torch.frontend.pitch import (PitchConfig,
+                                                      ProcessPitchConfig)
+    from asr_decoder_tpu_torch.models.flagship import make_flagship
+    from asr_decoder_tpu_torch.models.nnet import AmConfig
+    from asr_decoder_tpu_torch.serving.session import (OnlineDecoderConfig,
+                                                       OnlineDecoderInfo)
+    nnet = make_flagship(1, feat_dim=FEAT_DIM + PITCH_DIM,
+                         num_pdfs=NUM_PDFS, device=dev)
+    return OnlineDecoderInfo(
+        nnet, fst, make_words(int(fst.arc_olabel.max())), i2p,
+        DecoderConfig(**SEARCH),
+        OnlineDecoderConfig(use_energy_vad=True, ctc_blank_shift=True),
+        FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP),
+        pitch_config=PitchConfig(), process_pitch_config=ProcessPitchConfig(),
+        device=dev)
+
+
+def serve_vad(info, streams) -> tuple[list, float, object]:
+    """Every stream over its own connection, each push awaited: (per
+    stream [(reply, send time, reply time)], wall s, the server)."""
+    from asr_decoder_tpu_torch.serving.client import AsyncAsrClient
+    from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
+
+    async def serve():
+        server = AsrServer(info, SocketConfig(port=0,
+                                              num_channels=len(streams)))
+        host, port = await server.start()
+        try:
+            async def one(w, cuts):
+                c = AsyncAsrClient(host, port)
+                await c.connect()
+                try:
+                    out = []
+                    for lo, hi in cuts:
+                        t0 = time.perf_counter()
+                        r = await c.send_chunk(w[lo:hi], end=hi >= len(w))
+                        out.append((r, t0, time.perf_counter()))
+                    return out
+                finally:
+                    await c.close()
+            return await asyncio.gather(*(one(w, c) for w, c, _ in
+                                          streams)), server
+        finally:
+            await server.stop()
+
+    t0 = time.perf_counter()
+    replies, server = asyncio.run(serve())
+    return replies, time.perf_counter() - t0, server
+
+
+def check_serve_vad(info, streams, replies) -> list[float]:
+    """Every stream's replies against its card session: endpoint pushes,
+    segment words, prefix + segment texts.  Returns each stream's (wall s
+    from its first silent push to its first MIDDLEEND reply, that push's
+    round trip)."""
+    from asr_decoder_tpu_torch.serving.protocol import EndFlag
+    from asr_decoder_tpu_torch.serving.session import OnlineDecoderSession
+    lat = []
+    for k, ((w, cuts, sil_at), rs) in enumerate(zip(streams, replies)):
+        flags, segs = run_segments(OnlineDecoderSession(info), w, cuts)
+        got = [r.end_flag == EndFlag.MIDDLEEND for r, _, _ in rs]
+        check(got == flags, f"vad serve stream {k}: MIDDLEEND at the "
+                            f"session's endpoint pushes")
+        check(any(flags), f"vad serve stream {k}: at least one MIDDLEEND")
+        check(rs[-1][0].end_flag == EndFlag.END, f"stream {k}: final END")
+        done, words = 0, []
+        for (r, _, _), ep in zip(rs, flags):
+            if ep or r.end_flag == EndFlag.END:
+                words = words + segs[done][0]
+                done += 1
+                check(r.results[0].words == words,
+                      f"stream {k}: reply {done} = prefix + segment words")
+        check(done == len(segs) and rs[-1][0].one_best() == " ".join(
+            info.words.words(words)), f"stream {k}: final text = prefix + "
+                                      f"last segment")
+        first_sil = next(i for i, (lo, _) in enumerate(cuts)
+                         if lo >= sil_at)
+        ep = flags.index(True)
+        lat.append((rs[ep][2] - rs[first_sil][1], rs[ep][2] - rs[ep][1]))
+    return lat
+
+
+def pitch_card_vs_cpu(dev, streams) -> dict:
+    """StreamPitch on the card and on the CPU over CPU_STREAMS short
+    streams (their first 2 s), the same pushes: every push's features
+    within PITCH_TOL, the offline lag paths equal.  Then the card's ms per
+    push along one whole stream and the Viterbi's kernels per push."""
+    from asr_decoder_tpu_torch.frontend import pitch as P
+    cfg, pcfg = P.PitchConfig(), P.ProcessPitchConfig()
+    err = 0.0
+    for w, cuts, _ in streams[:CPU_STREAMS]:
+        short = w[:32000].astype(np.float32)
+        sp = [P.StreamPitch(cfg, pcfg, device=d) for d in (dev, "cpu")]
+        for lo, hi in cuts:
+            if lo >= len(short):
+                break
+            end = hi >= len(short)
+            g, c = (s.process_wave(short[None, lo:hi], end=end) for s in sp)
+            check(g.shape == c.shape and np.allclose(
+                g, c, atol=PITCH_TOL, rtol=PITCH_TOL),
+                "pitch features card vs CPU within tolerance")
+            if g.size:
+                err = max(err, float(np.abs(g - c).max()))
+        paths = [np.rint(cfg.resample_freq / P.compute_pitch(
+            cfg, short[None], device=d)[0].cpu().numpy()).astype(int)
+            for d in (dev, "cpu")]
+        check(np.array_equal(*paths), "pitch Viterbi lag paths card == CPU")
+    w, cuts, _ = streams[0]
+    sp = P.StreamPitch(cfg, pcfg, device=dev)
+    ms = []
+    for lo, hi in cuts:
+        t0 = time.perf_counter()
+        sp.process_wave(w[None, lo:hi].astype(np.float32),
+                        end=hi >= len(w))
+        ms.append((hi / 16000, 1e3 * (time.perf_counter() - t0)))
+    at = [min(ms, key=lambda m: abs(m[0] - t)) for t in (1.0, 2.0, 3.0)]
+    wave = torch.from_numpy(w[None].astype(np.float32)).to(dev)
+    nccf = P.compute_nccf(cfg, P.linear_resample(cfg, wave))[0]
+    lags = cfg.lags().astype(np.float32)
+    loglag = np.log(lags)
+    trans = torch.from_numpy((cfg.penalty_factor * (
+        loglag[:, None] - loglag[None, :]) ** 2).astype(np.float32)).to(dev)
+    viterbi, vms = profile_cuda(lambda: P._viterbi_track(1.0 - nccf, trans))
+    push, pms = profile_cuda(lambda: P.compute_and_process_pitch(cfg, pcfg,
+                                                                 wave))
+    T = nccf.shape[1]
+    print(f"vad pitch: card == CPU over {CPU_STREAMS} streams of 2 s in "
+          f"their pushes (max abs err {err:.2e}, tolerance {PITCH_TOL}), "
+          f"lag paths equal; card ms per push "
+          + ", ".join(f"{m:.2f} at {t:.2f} s" for t, m in at + ms[-1:])
+          + f" (the whole wave re-run each push; {sum(m for _, m in ms):.1f}"
+          f" ms over the stream's {len(ms)} pushes); at {T} frames the "
+          f"Viterbi is {viterbi} "
+          f"kernels ({viterbi / max(T - 1, 1):.2f} a frame, {vms:.3f} device "
+          f"ms) of the push's {push} ({pms:.3f} device ms)")
+    return dict(err=err, ms_at_1s=at[0][1], ms_at_end=ms[-1][1],
+                viterbi_kernels=viterbi)
+
+
+def phase_vad(dev, fst, i2p) -> dict:
+    """The VAD-driven serve path (module docstring, item 8).  Returns the
+    gather and fetch launches of its serve run."""
+    from asr_decoder_tpu_torch.ops import fetch, gather
+    from asr_decoder_tpu_torch.serving.protocol import EndFlag
+    from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
+                                                       OnlineDecoderSession)
+    from asr_decoder_tpu_torch.serving.v1_session import V1AsrSession
+    from asr_decoder_tpu_torch.vad import model_vad as MV
+    from asr_decoder_tpu_torch.vad.energy import EnergyVadStream
+    from asr_decoder_tpu_torch.wakeup import dtw
+    from asr_decoder_tpu_torch.models.nnet import from_numpy_layers
+    t_phase = time.perf_counter()
+    streams = vad_streams()
+    info = vad_info(dev, fst, i2p)
+    # warm-up: one short push through a session (first-use costs)
+    OnlineDecoderSession(info).process_data(
+        streams[0][0][:16000].astype(np.float32), eos=True)
+    gather.launches = fetch.launches = 0
+    replies, wall, server = serve_vad(info, streams)
+    launches = {"gather": gather.launches, "fetch": fetch.launches}
+    check(launches["gather"] > 0 and launches["fetch"] > 0,
+          f"vad serve: gather and fetch kernels launched ({launches})")
+    lat = check_serve_vad(info, streams, replies)
+    audio = sum(len(w) for w, _, _ in streams) / 16000
+    middle = sum(r.end_flag == EndFlag.MIDDLEEND for rs in replies
+                 for r, _, _ in rs)
+    print(f"vad serve: {VAD_STREAMS} concurrent streams (83-dim fbank ‖ "
+          f"pitch, energy VAD), {audio:.2f} audio-s in {wall:.3f} s wall "
+          f"(RTF {wall / audio:.4f}), {server.dispatches} dispatches; "
+          f"{middle} MIDDLEEND replies, every reply equal to its card "
+          f"session (endpoint pushes, prefix + segment words); first silent "
+          f"push -> MIDDLEEND reply {1e3 * np.median([a for a, _ in lat]):.1f}"
+          f" ms median, {1e3 * max(a for a, _ in lat):.1f} ms max (the "
+          f"endpoint push's own round trip "
+          f"{1e3 * np.median([b for _, b in lat]):.1f} ms median); kernel "
+          f"launches {launches}")
+
+    # card == CPU: the energy VAD, every push of every stream
+    vms = []
+    for w, cuts, _ in streams:
+        vads = [EnergyVadStream(info.vad_config, device=d)
+                for d in (dev, "cpu")]
+        for lo, hi in cuts:
+            pcm = w[None, lo:hi].astype(np.float32)
+            t0 = time.perf_counter()
+            g = vads[0].accept(pcm, end=hi >= len(w))
+            vms.append(1e3 * (time.perf_counter() - t0))
+            check(np.array_equal(g, vads[1].accept(pcm, end=hi >= len(w))),
+                  "energy VAD decisions card == CPU")
+    print(f"vad energy: card == CPU over {sum(len(c) for _, c, _ in streams)}"
+          f" pushes; card {np.mean(vms):.3f} ms per push (mean)")
+    pitch = pitch_card_vs_cpu(dev, streams)
+
+    # card == CPU: V1 sessions (silence never reaches the AM)
+    cpu_info = vad_info(torch.device("cpu"), fst, i2p)
+    same_words = 0
+    for w, cuts, _ in streams[:CPU_STREAMS]:
+        v1 = [V1AsrSession(i) for i in (info, cpu_info)]
+        for s in v1:
+            for lo, hi in cuts:
+                s.process_data(w[lo:hi].astype(np.float32))
+            s.process_data(np.zeros(0, np.float32), eos=True)
+        g, c = ([(r["frame_span"], r["frames"]) for r in s.results]
+                for s in v1)
+        check(g == c and len(g) >= 2, f"V1 segments card == CPU ({g})")
+        check(v1[0].frames_decoded() == v1[1].frames_decoded() and
+              v1[0].frames_decoded() < v1[0].tot_nosil_frames
+              + v1[0].tot_sil_frames, "V1 frames fed to the AM card == "
+                                      "CPU, silence skipped")
+        same_words += sum(a["words"] == b["words"] for a, b in
+                          zip(*(s.results for s in v1)))
+    print(f"vad v1: card == CPU over {CPU_STREAMS} streams: segments and "
+          f"frames fed to the AM equal; words equal in {same_words} "
+          f"segments (the AM differs in the last bits, phase 5)")
+    del cpu_info
+
+    # card == CPU: the nnet VAD over the streams' spliced features
+    D = FEAT_DIM + PITCH_DIM
+    w_sp = np.zeros(3 * D, np.float32)
+    w_sp[np.tile(np.arange(D) < FEAT_DIM, 3)] = 1.0 / (3 * FEAT_DIM)
+    layers = [("splice", D, 3 * D, (-1, 0, 1), {}),
+              ("affine", 3 * D, 2, (), {"weight": np.stack([-w_sp, w_sp]),
+                                        "bias": np.array([14.0, -14.0])}),
+              ("softmax", 2, 2, (), {})]
+    nv = [MV.VadNnet(from_numpy_layers(layers, device=d), [0], device=d)
+          for d in (dev, "cpu")]
+    judge = MV.VadJudgeConfig()
+    frames = 0
+    for w, _, _ in streams:
+        feats = info.make_frontend().accept(w[None].astype(np.float32),
+                                            end=True)[0]
+        spliced = FeatureBuffer(1, 1, (-1, 0, 1)).accept(feats, end=True)
+        st = [MV.VadNnetStream(v, judge) for v in nv]
+        for lo in range(0, len(spliced), 37):
+            end = lo + 37 >= len(spliced)
+            g, c = (s.accept(spliced[None, lo:lo + 37], end=end) for s in st)
+            check(np.array_equal(g, c), "nnet VAD decisions card == CPU")
+        frames += len(spliced)
+        check(0 < st[0].sil_frames and 0 < st[0].nosil_frames,
+              "nnet VAD finds speech and silence")
+    print(f"vad nnet: VadNnetStream decisions card == CPU over {frames} "
+          f"frames of the streams' 83-dim features")
+
+    # card == CPU: wakeup on posteriors with a keyword in noise
+    rng = np.random.default_rng(12)
+    tpl = rng.choice(NUM_PDFS, 6, replace=False)
+    post = rng.dirichlet(np.ones(NUM_PDFS), 300).astype(np.float32)
+    for j, s in enumerate(np.repeat(tpl, 8)):
+        post[150 + j] *= 0.1
+        post[150 + j, s] += 0.9
+    ws = [dtw.WakeupSearch(dtw.WakeupConfig(), tpl, device=d)
+          for d in (dev, "cpu")]
+    fired = [s.process_data(post, end=True) for s in ws]
+    check(fired[0] == fired[1] and fired[0] and ws[0].wake_range ==
+          ws[1].wake_range, f"wakeup fires card == CPU ({ws[0].wake_range})")
+    cost = rng.random((8, 100, 6)).astype(np.float32) * 8
+    tg, dg = dtw.dtw_align(torch.from_numpy(cost).to(dev))
+    tc, dc = dtw.dtw_align(torch.from_numpy(cost))
+    derr = (dg.cpu() - dc).abs().max().item()
+    check(torch.allclose(dg.cpu(), dc, atol=DTW_TOL, rtol=DTW_TOL) and
+          abs(ws[0].confidence - ws[1].confidence) <= DTW_TOL,
+          f"DTW costs card vs CPU (max abs err {derr})")
+    print(f"vad wakeup: fires card == CPU at frames {ws[0].wake_range} "
+          f"(confidence {ws[0].confidence:.6f} vs {ws[1].confidence:.6f}); "
+          f"DTW [8,100,6] card vs CPU max abs err {derr:.2e} (tolerance "
+          f"atol = rtol = {DTW_TOL}, totals up to {tc.max().item():.1f})")
+    print(f"phase vad: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, pitch=pitch)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -852,21 +1222,26 @@ def main() -> int:
     print(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     graph_types = phase_graph_types(dev, nnet, fst, i2p)
     print(f"phase graph types done at {time.perf_counter() - t0:.1f} s")
+    del nnet
+    vad = phase_vad(dev, fst, i2p)["launches"]
+    print(f"phase vad done at {time.perf_counter() - t0:.1f} s")
     check_imports()
-    # the gather's main-path launches: the serve run and the graph types'
-    # card searches and serve runs (each counted from 0 just before)
+    # the search kernels' main-path launches: the serve run, the graph
+    # types' card searches and serve runs, the VAD-driven serve run (each
+    # counted from 0 just before)
     kernels["gather"]["max_abs_err"] = max(kernels["gather"]["max_abs_err"],
                                            graph_types["max_abs_err"])
     record = {"kernels": [
         dict(name="batched_table_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/gather.cu",
              replaces="asr_decoder_tpu/ops/gather.py:43",
-             launches=launches["gather"] + graph_types["gather"],
+             launches=(launches["gather"] + graph_types["gather"]
+                       + vad["gather"]),
              **kernels["gather"]),
         dict(name="fetch_records", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="asr_decoder_tpu/ops/fetch.py:65",
-             launches=launches["fetch"], **kernels["fetch"]),
+             launches=launches["fetch"] + vad["fetch"], **kernels["fetch"]),
         dict(name="make_dma_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="tools/perf/bench_row_gather.py:38",

@@ -96,5 +96,23 @@ def test_streaming_frontend_matches_jax():
 
 
 def test_pitch_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PP.StreamingFrontend(PF.FbankConfig(), pitch_cfg=object())
+    """Pitch, once refused, now runs: a one-push fbank ‖ pitch frontend
+    equals JAX's (fbank columns at the fbank tolerance above, the three
+    pitch columns at the pitch tolerance of ``tests/test_torch_pitch.py``,
+    atol = rtol = 1e-4)."""
+    from asr_decoder_tpu.frontend import pitch as JPI
+    from asr_decoder_tpu_torch.frontend import pitch as PPI
+    wave = _wave(4, n=12000, batch=1)
+    jfront = JP.StreamingFrontend(JF.FbankConfig(num_bins=16),
+                                  pitch_cfg=JPI.PitchConfig(),
+                                  ppitch_cfg=JPI.ProcessPitchConfig())
+    pfront = PP.StreamingFrontend(PF.FbankConfig(num_bins=16),
+                                  pitch_cfg=PPI.PitchConfig(),
+                                  ppitch_cfg=PPI.ProcessPitchConfig())
+    want = np.asarray(jfront.accept(wave, end=True))
+    got = pfront.accept(wave, end=True)
+    assert got.shape == want.shape == (1, 73, 19)
+    np.testing.assert_allclose(got[..., :16], want[..., :16], rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(got[..., 16:], want[..., 16:], rtol=1e-4,
+                               atol=1e-4)

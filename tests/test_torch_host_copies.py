@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's host modules
 (``asr_decoder_tpu_torch/{fst,decoder,lm,utils,serving,frontend,align,eval,
-models}``) against their originals, and the port's independence from the
-JAX package.
+models,cli}``) against their originals, and the port's independence from
+the JAX package.
 
 Tolerance: none.  Each copy runs the original's numpy code unchanged, so
 the same seeded inputs give equal arrays, equal bytes and equal text; a
@@ -21,7 +21,10 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import asr_decoder_tpu_torch.align.phone_to_word as PPW
 import asr_decoder_tpu_torch.align.word_align as PA
+import asr_decoder_tpu_torch.cli.lmscore as PLS
+import asr_decoder_tpu_torch.cli.post_serve as PPS
 import asr_decoder_tpu_torch.decoder.config as PC
 import asr_decoder_tpu_torch.decoder.raw_lattice as PR
 import asr_decoder_tpu_torch.eval.synth_task as PS
@@ -35,12 +38,17 @@ import asr_decoder_tpu_torch.fst.nbest as PN
 import asr_decoder_tpu_torch.fst.symbol as PSY
 import asr_decoder_tpu_torch.fst.synthetic as PSYN
 import asr_decoder_tpu_torch.lm.arpa as PARPA
+import asr_decoder_tpu_torch.lm.compose as PCOMP
 import asr_decoder_tpu_torch.lm.synth_arpa as PSA
 import asr_decoder_tpu_torch.models.transition as PT
+import asr_decoder_tpu_torch.serving.post_service as PPOST
 import asr_decoder_tpu_torch.serving.protocol as PP
 import asr_decoder_tpu_torch.utils.config as PCO
 import asr_decoder_tpu_torch.utils.wer as PW
+import asr_decoder_tpu.align.phone_to_word as JPW
 import asr_decoder_tpu.align.word_align as JA
+import asr_decoder_tpu.cli.lmscore as JLS
+import asr_decoder_tpu.cli.post_serve as JPS
 import asr_decoder_tpu.decoder.config as JC
 import asr_decoder_tpu.decoder.raw_lattice as JR
 import asr_decoder_tpu.eval.synth_task as JS
@@ -54,8 +62,10 @@ import asr_decoder_tpu.fst.nbest as JN
 import asr_decoder_tpu.fst.symbol as JSY
 import asr_decoder_tpu.fst.synthetic as JSYN
 import asr_decoder_tpu.lm.arpa as JARPA
+import asr_decoder_tpu.lm.compose as JCOMP
 import asr_decoder_tpu.lm.synth_arpa as JSA
 import asr_decoder_tpu.models.transition as JT
+import asr_decoder_tpu.serving.post_service as JPOST
 import asr_decoder_tpu.serving.protocol as JP
 import asr_decoder_tpu.utils.config as JCO
 import asr_decoder_tpu.utils.wer as JW
@@ -399,10 +409,116 @@ def case_score_pair(tmp_path):
             dataclasses.asdict(PW.score_pair(ref, hyp))
 
 
+def case_phone_to_word(tmp_path):
+    """Lexicon file read, longest-match alignment with an unmatched phone,
+    and frame spans."""
+    (tmp_path / "lex").write_text("ni p1 p2\nhao p3\nnihao p1 p2 p3\n"
+                                  "x p4 p5\n")
+    got = []
+    for M, SY in ((JPW, JSY), (PPW, PSY)):
+        words, phones = SY.SymbolTable(), SY.SymbolTable()
+        for i, w in enumerate(["<eps>", "ni", "hao", "nihao", "x"]):
+            words.add(w, i)
+        for i, ph in enumerate(["<eps>", "p1", "p2", "p3", "p4", "p5"]):
+            phones.add(ph, i)
+        p2w = M.PhoneToWord.read_lexicon(str(tmp_path / "lex"), words,
+                                         phones)
+        w, spans, ok = p2w.align([1, 2, 3, 4, 5, 9, 1, 2])
+        got.append((w, [vars(sp) for sp in spans], ok,
+                    p2w.align_with_frames([1, 2, 3], [4, 9, 15])))
+    assert got[0] == got[1]
+
+
+def _lms(mod):
+    text1, text2 = (mod.synth_arpa_text(vocab_size=30, n_bigram=n,
+                                        n_trigram=t, seed=sd)
+                    for n, t, sd in ((40, 0, 12), (60, 25, 13)))
+    return text1, text2
+
+
+def _word_lattice(seed):
+    lat = random_lattice(np.random.default_rng(seed))
+    for s in range(lat.num_states):           # olabels in the LM's vocab
+        for a in lat.arcs(s):
+            if a.olabel:
+                a.olabel = 1 + a.olabel % 30
+    return lat
+
+
+def case_compose_lmscore(tmp_path):
+    """Lattice ⊗ scale·G and ⊗ (G₂ − G₁) give equal bytes; ``load_lm``
+    reads an ARPA text and an Fsa binary; ``score_text`` and the
+    ``lmscore`` CLI print equal lines."""
+    t1, t2 = _lms(JSA)
+    assert (t1, t2) == _lms(PSA)
+    (tmp_path / "g1.arpa").write_text(t1)
+    (tmp_path / "g2.arpa").write_text(t2)
+    JARPA.parse_arpa(t2).write_binary(str(tmp_path / "g2.fsa"))
+    for name in ("g2.arpa", "g2.fsa"):
+        assert_same(JLS.load_lm(str(tmp_path / name)),
+                    PLS.load_lm(str(tmp_path / name)))
+    j1, j2 = (JLS.load_lm(str(tmp_path / n)) for n in ("g1.arpa", "g2.arpa"))
+    p1, p2 = (PLS.load_lm(str(tmp_path / n)) for n in ("g1.arpa", "g2.arpa"))
+    for seed in range(3):
+        lat = _word_lattice(seed)
+        plat = to_port(lat)
+        assert JCOMP.compose_lattice(lat, JCOMP.ComposeArpaLm(j2, 0.7)) \
+            .to_bytes() == PCOMP.compose_lattice(
+                plat, PCOMP.ComposeArpaLm(p2, 0.7)).to_bytes()
+        assert JCOMP.rescore_lattice(lat, j1, j2, 0.5, 1.5).to_bytes() == \
+            PCOMP.rescore_lattice(plat, p1, p2, 0.5, 1.5).to_bytes()
+    text = "w1 w2 w3\nw4 w29 w7 w7\n\nw30 w11\n"
+    (tmp_path / "text").write_text(text)
+    assert JCOMP.ArpaLmScore(j2).score_text(text.split()) == \
+        PCOMP.ArpaLmScore(p2).score_text(text.split())
+    assert_same(JCOMP.ArpaLmScore(j2).text_to_lattice([1, 4, 9]),
+                PCOMP.ArpaLmScore(p2).text_to_lattice([1, 4, 9]))
+    out = []
+    for M in (JLS, PLS):
+        import contextlib
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert M.main([str(tmp_path / "g2.arpa"),
+                           str(tmp_path / "text")]) == 0
+        out.append(buf.getvalue())
+    assert out[0] == out[1] and len(out[0].splitlines()) == 3
+    assert JPS.main([]) == PPS.main([]) == 2         # usage: lm2 [lm1]
+
+
+def case_post_service(tmp_path, monkeypatch):
+    """Request and response bytes, and ``PostServer._process`` in add and
+    replace mode on random lattices (and on garbage): equal responses.
+    The original's native n-shortest is turned off: the copy keeps the
+    original's Python n-shortest only."""
+    from asr_decoder_tpu.fst import native_nbest
+    monkeypatch.setattr(native_nbest, "_lib", lambda: None)
+    t1, t2 = _lms(JSA)
+    jr = JPOST.ConstLmRescorer(JARPA.parse_arpa(t2), JARPA.parse_arpa(t1))
+    pr = PPOST.ConstLmRescorer(PARPA.parse_arpa(t2), PARPA.parse_arpa(t1))
+    js, ps = JPOST.PostServer(jr), PPOST.PostServer(pr)
+    for seed in range(3):
+        data = _word_lattice(seed).to_bytes()
+        for mode in (JPOST.MODE_ADD, JPOST.MODE_REPLACE):
+            jq = JPOST.PostRequest(mode, 0.8, 3, False, data)
+            pq = PPOST.PostRequest(mode, 0.8, 3, False, data)
+            assert jq.pack() == pq.pack()
+            jres, pres = js._process(jq), ps._process(pq)
+            assert pres.ok and pres.results
+            assert jres.pack() == pres.pack()
+    bad = PPOST.PostRequest(lattice=b"\x01bad")
+    assert ps._process(bad).pack() == js._process(
+        JPOST.PostRequest(lattice=b"\x01bad")).pack()
+
+
 CASES = {name[5:]: fn for name, fn in list(globals().items())
          if name.startswith("case_")}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_copy_matches_original(case, tmp_path):
-    CASES[case](tmp_path)
+def test_copy_matches_original(case, tmp_path, monkeypatch):
+    fn = CASES[case]
+    if "monkeypatch" in fn.__code__.co_varnames:
+        fn(tmp_path, monkeypatch)
+    else:
+        fn(tmp_path)

@@ -24,6 +24,9 @@ from asr_decoder_tpu.serving.protocol import EndFlag  # noqa: E402
 from asr_decoder_tpu.serving.session import \
     OnlineDecoderSession as JaxSession  # noqa: E402
 from asr_decoder_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
+from asr_decoder_tpu_torch.frontend.pipeline import DeltaConfig  # noqa: E402
+from asr_decoder_tpu_torch.frontend.pitch import (  # noqa: E402
+    PitchConfig, ProcessPitchConfig)
 from asr_decoder_tpu_torch.lm.device_lm import DeviceDiffLm  # noqa: E402
 from asr_decoder_tpu_torch.models.nnet import (AmConfig,  # noqa: E402
                                                from_numpy_layers)
@@ -34,16 +37,17 @@ from asr_decoder_tpu_torch.serving.server import (AsrServer,  # noqa: E402
 from asr_decoder_tpu_torch.serving.session import (  # noqa: E402
     OnlineDecoderConfig, OnlineDecoderInfo, OnlineDecoderSession,
     word_alignment)
+from asr_decoder_tpu_torch.vad.energy import EnergyVadConfig  # noqa: E402
 
 from test_session import make_info, make_wave  # noqa: E402
 from test_torch_host_copies import to_port  # noqa: E402
 
 
 def port_info(jinfo) -> OnlineDecoderInfo:
-    """The port's info over the JAX info's model, graph and configs, all
-    carried across as arrays into the port's own classes (for ``clg`` the
-    same ClgFst, for ``biglm-hclg`` a DeviceDiffLm over the same host LMs
-    and scales)."""
+    """The port's info over the JAX info's model, graph and configs (VAD,
+    pitch and deltas included), all carried across as arrays into the
+    port's own classes (for ``clg`` the same ClgFst, for ``biglm-hclg`` a
+    DeviceDiffLm over the same host LMs and scales)."""
     layers = [(l.kind, l.input_dim, l.output_dim, l.meta,
                {k: np.asarray(v) for k, v in l.params.items()})
               for l in jinfo.nnet.layers]
@@ -55,13 +59,21 @@ def port_info(jinfo) -> OnlineDecoderInfo:
         kw["difflm"] = DeviceDiffLm.build(to_port(d.lm1.fsa),
                                           to_port(d.lm2.fsa), d.lm1_scale,
                                           d.lm2_scale, device="cpu")
+    for name, cls in (("pitch_config", PitchConfig),
+                      ("process_pitch_config", ProcessPitchConfig),
+                      ("delta_config", DeltaConfig)):
+        cfg = getattr(jinfo, name)
+        if cfg is not None:
+            kw[name] = cls(**asdict(cfg))
     return OnlineDecoderInfo(
         from_numpy_layers(layers, device="cpu"), to_port(jinfo.fst),
         to_port(jinfo.words), jinfo.ilabel2pdf,
         decoder_config=to_port(jinfo.decoder_config),
         online_config=OnlineDecoderConfig(**asdict(jinfo.config)),
         fbank_config=FbankConfig(**asdict(jinfo.fbank_config)),
-        am_config=AmConfig(**asdict(jinfo.am_config)), device="cpu", **kw)
+        am_config=AmConfig(**asdict(jinfo.am_config)),
+        vad_config=EnergyVadConfig(**asdict(jinfo.vad_config)), device="cpu",
+        **kw)
 
 
 @pytest.fixture(scope="module")
@@ -222,15 +234,24 @@ def test_server_answers_concurrent_clients(infos):
 
 
 def test_unported_configs_raise(infos):
-    """The energy VAD is not ported; every graph type is, and one that
-    lacks its graph is refused."""
-    _, pinfo = infos
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        OnlineDecoderInfo(
-            from_numpy_layers([], device="cpu"), pinfo.fst, pinfo.words,
-            pinfo.ilabel2pdf,
-            online_config=OnlineDecoderConfig(use_energy_vad=True),
-            device="cpu")
+    """The energy VAD, once refused, now builds and endpoints as JAX's
+    session does (speech, then silence past ``endpoint_sil_frames``); every
+    graph type is ported, and one that lacks its graph is refused."""
+    from test_session import make_info
+    jinfo = make_info(use_energy_vad=True, endpoint_sil_frames=20,
+                      min_endpoint_frames=10)
+    pinfo = port_info(jinfo)
+    rng = np.random.default_rng(4)
+    wave = np.concatenate([(rng.standard_normal(8000) * 4000),
+                           np.zeros(6400)]).astype(np.float32)
+    got = []
+    for s in (JaxSession(jinfo), OnlineDecoderSession(pinfo)):
+        flags = []
+        for lo in range(0, len(wave), 1600):
+            s.process_data(wave[lo:lo + 1600])
+            flags.append(s.endpoint_detected())
+        got.append(flags)
+    assert got[0] == got[1] and got[1][-1] and not got[1][0]
     for kw in (dict(graph_type="clg"), dict(graph_type="biglm-hclg"),
                dict(graph_type="hmm")):
         with pytest.raises(ValueError):
@@ -263,11 +284,12 @@ def test_port_imports_no_jax():
 
 # -- the clg and biglm-hclg graph types ----------------------------------
 
-def graph_infos(graph_type: str, lm_lanes: int = 1 << 20):
+def graph_infos(graph_type: str, lm_lanes: int = 1 << 20, **online_kw):
     """(JAX info, port info) of one graph type over ``make_info``'s AM and
     words: ``clg`` over ``tests/test_clg.py``'s composite (15 pdfs),
     ``biglm-hclg`` over ``make_info``'s graph with the difference of
-    ``tests/test_lm.py``'s two ARPA LMs (scales 0.7 / 1.3)."""
+    ``tests/test_lm.py``'s two ARPA LMs (scales 0.7 / 1.3); ``online_kw``
+    sets more session flags."""
     from asr_decoder_tpu.decoder.config import DecoderConfig
     from asr_decoder_tpu.lm.arpa import parse_arpa
     from asr_decoder_tpu.lm.device_lm import DeviceDiffLm as JaxDiffLm
@@ -288,7 +310,8 @@ def graph_infos(graph_type: str, lm_lanes: int = 1 << 20):
                 decoder_config=DecoderConfig(
                     beam=1e9, beam_width=64, arc_lanes=8, min_active=0,
                     lattice_beam=8.0, eps_mode="sweeps", lm_lanes=lm_lanes),
-                online_config=JOC(graph_type=graph_type, chunk_frames=16),
+                online_config=JOC(graph_type=graph_type, chunk_frames=16,
+                                  **online_kw),
                 fbank_config=base.fbank_config, **kw)
     return jinfo, port_info(jinfo)
 
@@ -432,3 +455,48 @@ def test_build_info_loads_clg_with_hmmfst_file(tmp_path):
     extra["hmmfst-file"] = ""
     with pytest.raises(ValueError, match="hmmfst-file"):
         build_info(*pos, dec, online, fbank, am, extra, device="cpu")
+
+
+def test_asr_to_post_pipeline():
+    """The port's two services end to end (``tests/test_post_service.py::
+    test_asr_to_post_pipeline``): decode over TCP, forward the final
+    reply's lattice to the port's post service, get the rescored n-best
+    back, equal to the in-process composition."""
+    from asr_decoder_tpu_torch.fst.lattice import Lattice
+    from asr_decoder_tpu_torch.fst.nbest import nshortest
+    from asr_decoder_tpu_torch.lm.arpa import parse_arpa
+    from asr_decoder_tpu_torch.lm.compose import ComposeArpaLm, compose_lattice
+    from asr_decoder_tpu_torch.serving.post_service import (
+        MODE_ADD, ConstLmRescorer, PostConfig, PostServer,
+        rescore_via_service)
+    from test_lm import ARPA, ARPA2
+    lm2 = parse_arpa(ARPA2, word2id=parse_arpa(ARPA).vocab)
+    pinfo = port_info(make_info())
+    wave = make_wave(9)
+
+    async def run():
+        asr = AsrServer(pinfo, SocketConfig(port=0, num_channels=2,
+                                            advertise_rescore=True))
+        post = PostServer(ConstLmRescorer(lm2), PostConfig(port=0))
+        ah, ap = await asr.start()
+        ph, pp = await post.start()
+        try:
+            client = AsyncAsrClient(ah, ap)
+            await client.connect()
+            reply = await client.decode_utterance(wave.astype(np.int16),
+                                                  lattice=True)
+            await client.close()
+            assert reply.lattice and reply.do_rescore
+            lat = Lattice.from_bytes(reply.lattice)
+            resp = await rescore_via_service(lat, ph, pp, mode=MODE_ADD,
+                                             lm_scale=0.5, nbest=2)
+            return lat, resp
+        finally:
+            await asr.stop()
+            await post.stop()
+
+    lat, resp = asyncio.run(run())
+    assert resp.ok and resp.results and lat.num_states
+    want = nshortest(compose_lattice(lat, ComposeArpaLm(lm2, 0.5)), 1)[0]
+    assert resp.results[0].words == \
+        [a.olabel for a in want.arcs if a.olabel != 0]
