@@ -24,8 +24,16 @@ Ported (module for module):
                                  pair search, LM-candidate compaction
   lm/device_lm.py              — device n-gram LM tables (hash, unigram,
                                  backoff) and the difference LM
-  models/layers.py, nnet.py    — all 13 layer kinds, the Nnet binary format,
-                                 am_forward; models/flagship.py: make_flagship
+  models/layers.py, nnet.py    — all 13 layer kinds and their constructors,
+                                 the Nnet binary format, am_forward,
+                                 pack_nonblank_frames (CTC blank-frame
+                                 packing), from/to_numpy_layers
+  models/flagship.py           — make_flagship and the CTC training step
+                                 (flagship_logits, ctc_loss_fn,
+                                 ctc_train_step, init_opt_state: F.ctc_loss
+                                 and torch.optim.Adam, with backward)
+  eval/harness.py              — train_ctc_model and evaluate_wer on one
+                                 device (WER, RTF, gold-decoder parity)
   frontend/fbank.py            — fbank, streaming fbank, live/utterance CMVN
   frontend/pitch.py            — Kaldi pitch: resampler, NCCF, Viterbi lag
                                  tracking, POV post-processing, StreamPitch,
@@ -43,27 +51,30 @@ Ported (module for module):
   serving/v1_session.py        — the VAD-orchestrated V1 session
   cli/_model.py, serve.py, decode.py (``--hmmfst-file`` loads a clg graph)
   utils/profiling.py           — torch.profiler ranges and Chrome traces
+  tools/bench.py, tools/eval.py — the offline tools (the JAX package's
+                                 root bench.py and eval.py): the three
+                                 operating points end to end, and train →
+                                 decode → WER → gold parity
   tools/perf/*.py              — the search microbenches and operating-point
                                  tools (bench_row_gather, bench_dma_variants,
-                                 bench_points, profile_production)
+                                 bench_points, profile_production with
+                                 ``--tlg``)
 
 Copied from ``asr_decoder_tpu`` (host-only numpy; the same code, imports
 rewritten, file formats unchanged): ``fst/{fst,semiring,symbol,lattice,
-determinize,nbest,device_fst,clg,ctc_graph,synthetic}.py``,
-``decoder/{config,raw_lattice}.py``, ``lm/{arpa,synth_arpa,compose}.py``,
-``utils/{config,logging,wer}.py``, ``serving/{protocol,client,
-post_service}.py`` (the post service keeps only the Python n-shortest),
-``cli/{lmscore,post_serve}.py``, ``frontend/audio.py``,
+determinize,nbest,device_fst,clg,ctc_graph,synthetic,tlg,algorithms}.py``,
+``decoder/{config,raw_lattice,gold,ref_parity}.py``,
+``lm/{arpa,synth_arpa,compose}.py``, ``utils/{config,logging,wer,timer}.py``,
+``serving/{protocol,client,post_service}.py`` (the post service keeps only
+the Python n-shortest), ``cli/{lmscore,post_serve,arpa2fsa,convert_graph,
+lat_compose,lmrescale}.py``, ``__main__.py`` (``python -m
+asr_decoder_tpu_torch <tool>``), ``frontend/audio.py``,
 ``align/{word_align,phone_to_word}.py``, ``eval/synth_task.py``,
 ``models/transition.py``.
 
-Not ported yet (ROADMAP §1): ``bench.py``/``eval.py`` and
-``eval/harness.py``, CTC training (``ctc_train_step``), multi-device
-(``parallel/*``), ``decoder/{gold,ref_parity}.py``,
-``fst/{algorithms,tlg,native_nbest}.py``, the ``arpa2fsa``,
-``convert_graph``, ``lat_compose`` and ``lmrescale`` CLIs and
-``__main__.py``, ``utils/timer.py``, ``serving/native_client.py`` and
-``native/*``.
+Not ported yet (ROADMAP §1): the native host paths
+(``fst/native_nbest.py``, ``serving/native_client.py``, ``native/*.cc``)
+and multi-device (``parallel/*`` with the ``__graft_entry__.py`` dry run).
 """
 
 __version__ = "0.1.0"

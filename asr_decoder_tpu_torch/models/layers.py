@@ -12,8 +12,11 @@ names: Affine/Linear weights are [out, in] (y = x·Wᵀ + b); LSTM gate blocks
 are stacked G,I,F,O with diagonal peepholes.  Recurrences are a frame loop
 of ``torch.addmm`` plus elementwise ops — ``nn.LSTM`` has neither the
 peepholes nor the G,I,F,O layout — after one matrix product of the input
-contribution for all frames.  Weights are inference-only parameters
-(``requires_grad=False``).
+contribution for all frames; the steps' outputs are collected and stacked
+once, which autograd differentiates without a chain of slice copies.
+Weights are registered with ``requires_grad=False``: serving never builds
+a graph.  ``models/flagship.py:ctc_train_step`` turns gradients on for the
+model it trains.
 """
 
 from __future__ import annotations
@@ -143,7 +146,7 @@ class Lstm(Layer):
         gx = torch.matmul(x, self.w_gifo_x.t()) + self.bias      # [B,T,4H]
         w_m = self.w_gifo_m.t()
         c, m = state["c"], state["m"]
-        ys = torch.empty(x.shape[:2] + (H,), dtype=gx.dtype, device=x.device)
+        ys = []
         for t in range(x.shape[1]):
             g = torch.addmm(gx[:, t], m, w_m)
             yg, yi, yf, yo = g[:, :H], g[:, H:2 * H], g[:, 2 * H:3 * H], \
@@ -157,8 +160,8 @@ class Lstm(Layer):
             if phole:
                 yo = yo + self.phole_o * c
             m = torch.sigmoid(yo) * torch.tanh(c)
-            ys[:, t] = m
-        return ys, {"c": c, "m": m}
+            ys.append(m)
+        return torch.stack(ys, dim=1), {"c": c, "m": m}
 
 
 class LstmProjected(Layer):
@@ -175,8 +178,7 @@ class LstmProjected(Layer):
         gx = torch.matmul(x, self.w_gifo_x.t()) + self.bias      # [B,T,4H]
         w_r, w_rm = self.w_gifo_r.t(), self.w_r_m.t()
         c, r = state["c"], state["r"]
-        ys = torch.empty(x.shape[:2] + (self.output_dim,), dtype=gx.dtype,
-                         device=x.device)
+        ys = []
         for t in range(x.shape[1]):
             g = torch.addmm(gx[:, t], r, w_r)
             yg, yi, yf, yo = g[:, :H], g[:, H:2 * H], g[:, 2 * H:3 * H], \
@@ -186,8 +188,8 @@ class LstmProjected(Layer):
             c = yi * torch.tanh(yg) + yf * c
             yo = torch.sigmoid(yo + self.phole_o * c)
             r = torch.mm(yo * torch.tanh(c), w_rm)
-            ys[:, t] = r
-        return ys, {"c": c, "r": r}
+            ys.append(r)
+        return torch.stack(ys, dim=1), {"c": c, "r": r}
 
 
 class Sru(Layer):
@@ -206,11 +208,11 @@ class Sru(Layer):
         yr = torch.sigmoid(xfrh[..., 2 * H:3 * H] + self.bias_r)
         yah = xfrh[..., 3 * H:]
         c = state["c"]
-        cs = torch.empty_like(yx)
+        cs = []
         for t in range(x.shape[1]):
             c = yf[:, t] * c + (1.0 - yf[:, t]) * yx[:, t]
-            cs[:, t] = c
-        return yr * cs + (1.0 - yr) * yah, {"c": c}
+            cs.append(c)
+        return yr * torch.stack(cs, dim=1) + (1.0 - yr) * yah, {"c": c}
 
 
 LAYER_CLASSES = {
@@ -237,7 +239,7 @@ def make_layer(kind: str, input_dim: int, output_dim: int,
 
 
 # ----------------------------------------------------------------------
-# random-init constructors (the flagship's kinds), seeded by a Generator
+# random-init constructors, seeded by a Generator
 # ----------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
@@ -256,6 +258,24 @@ def make_affine(gen: torch.Generator, in_dim: int, out_dim: int,
                        "bias": torch.zeros(out_dim)})
 
 
+def make_linear(gen: torch.Generator, in_dim: int, out_dim: int,
+                scale: float = 0.05) -> Layer:
+    return make_layer("linear", in_dim, out_dim,
+                      {"weight": _normal(gen, (out_dim, in_dim), scale)})
+
+
+def make_lstm(gen: torch.Generator, in_dim: int, dim: int,
+              peephole: bool = True, scale: float = 0.05) -> Layer:
+    p = {"w_gifo_x": _normal(gen, (4 * dim, in_dim), scale),
+         "w_gifo_m": _normal(gen, (4 * dim, dim), scale),
+         "bias": torch.zeros(4 * dim)}
+    if peephole:
+        p.update(phole_i=_normal(gen, (dim,), scale),
+                 phole_f=_normal(gen, (dim,), scale),
+                 phole_o=_normal(gen, (dim,), scale))
+    return make_layer("lstm" if peephole else "tf_lstm", in_dim, dim, p)
+
+
 def make_lstm_projected(gen: torch.Generator, in_dim: int, hidden: int,
                         out_dim: int, scale: float = 0.05) -> Layer:
     p = {"w_gifo_x": _normal(gen, (4 * hidden, in_dim), scale),
@@ -268,8 +288,20 @@ def make_lstm_projected(gen: torch.Generator, in_dim: int, hidden: int,
     return make_layer("lstm_projected", in_dim, out_dim, p)
 
 
+def make_sru(gen: torch.Generator, in_dim: int, dim: int,
+             scale: float = 0.05) -> Layer:
+    return make_layer("sru", in_dim, dim,
+                      {"w_xfrh": _normal(gen, (4 * dim, in_dim), scale),
+                       "bias_f": torch.zeros(dim),
+                       "bias_r": torch.zeros(dim)})
+
+
 def make_softmax(dim: int) -> Layer:
     return make_layer("softmax", dim, dim)
+
+
+def make_sigmoid(dim: int) -> Layer:
+    return make_layer("sigmoid", dim, dim)
 
 
 def make_prior(counts: np.ndarray) -> Layer:
@@ -280,3 +312,15 @@ def make_prior(counts: np.ndarray) -> Layer:
     return make_layer("prior", len(counts), len(counts),
                       {"log_priors": torch.from_numpy(
                           np.log(priors).astype(np.float32))})
+
+
+def make_add_shift(shift) -> Layer:
+    shift = torch.as_tensor(np.asarray(shift, np.float32))
+    return make_layer("add_shift", shift.shape[-1], shift.shape[-1],
+                      {"shift": shift})
+
+
+def make_rescale(scale) -> Layer:
+    scale = torch.as_tensor(np.asarray(scale, np.float32))
+    return make_layer("rescale", scale.shape[-1], scale.shape[-1],
+                      {"scale": scale})

@@ -121,6 +121,14 @@ def from_numpy_layers(layers, device="cuda") -> Nnet:
                  for kind, din, dout, meta, params in layers]).to(device)
 
 
+def to_numpy_layers(nnet: Nnet) -> list:
+    """The inverse of ``from_numpy_layers``: the same tuples, the weights as
+    host float32 arrays (copies, detached from any graph)."""
+    return [(l.kind, l.input_dim, l.output_dim, l.meta,
+             {k: v.detach().cpu().numpy().copy() for k, v in l.params.items()})
+            for l in nnet.layers]
+
+
 def _f32(f, n) -> np.ndarray:
     a = np.fromfile(f, "<f4", n)
     if len(a) != n:
@@ -244,3 +252,32 @@ def blank_frame_mask(loglikes: torch.Tensor, block_pdf_pdfid: int,
     compares the acoustically scaled blank score with the threshold
     (ref: SkipBlockFrame, nnet-nnet.h:265-275; scale at nnet-nnet.h:231)."""
     return acoustic_scale * loglikes[..., block_pdf_pdfid] > BLANK_SKIP_LOGPROB
+
+
+def pack_nonblank_frames(loglikes: torch.Tensor, block_pdf_pdfid: int,
+                         acoustic_scale: float = 1.0,
+                         thresh: float | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Drop skippable blank-dominated frames and left-pack the rest.
+
+    ``loglikes`` f32[B, T, V] → (packed f32[B, T', V], mask bool[B, T'])
+    on the input's device, with T' = max per-utterance kept count (at least
+    1) — the batched analogue of the reference's SkipBlockFrame frame
+    skipping (ref: nnet-nnet.h:265-275): skipped frames never reach the
+    search at all, so decode cost scales with the non-blank frame count.
+    ``thresh`` overrides the default unnormalized-score threshold (use
+    ≈ log(0.95) for log-softmax posteriors).  Kept rows are copied, never
+    computed; rows past an utterance's count are zero.  Reading T' is the
+    one host synchronisation.
+    """
+    cut = BLANK_SKIP_LOGPROB if thresh is None else thresh
+    keep = ~(acoustic_scale * loglikes[..., block_pdf_pdfid] > cut)
+    counts = keep.sum(dim=1)
+    Tp = max(int(counts.max()), 1)
+    # a stable sort of the dropped flag lists the kept frames first, in order
+    order = torch.sort((~keep).to(torch.uint8), dim=1,
+                       stable=True).indices[:, :Tp]
+    mask = torch.arange(Tp, device=loglikes.device)[None, :] < counts[:, None]
+    rows = torch.gather(
+        loglikes, 1, order[..., None].expand(-1, -1, loglikes.shape[-1]))
+    return torch.where(mask[..., None], rows, torch.zeros_like(rows)), mask

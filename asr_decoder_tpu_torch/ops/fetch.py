@@ -33,6 +33,8 @@ LANES = (32, 64, 128, 256, 512)
 
 # kernel launches from this process (CUDA tensors only); callers reset it
 launches = 0
+# while this is a set, every launch adds its (S, L, B, K) to it
+shapes: set | None = None
 
 
 @functools.cache
@@ -91,6 +93,8 @@ def fetch_records(table: torch.Tensor, state: torch.Tensor,
     if err:
         raise RuntimeError(f"fetch kernel launch failed: CUDA error {err}")
     launches += 1
+    if shapes is not None:
+        shapes.add((S, L, B, K))
     return out
 
 

@@ -25,6 +25,8 @@ MAX_TABLES = 8
 
 # kernel launches from this process (CUDA tensors only); callers reset it
 launches = 0
+# while this is a set, every launch adds its (B, V, N, table dtypes) to it
+shapes: set | None = None
 
 
 @functools.cache
@@ -98,4 +100,6 @@ def batched_table_gather_many(tables: Sequence[torch.Tensor],
     if err:
         raise RuntimeError(f"gather kernel launch failed: CUDA error {err}")
     launches += 1
+    if shapes is not None:
+        shapes.add((B, V, N, tuple(t.dtype for t in tables)))
     return tuple(outs)

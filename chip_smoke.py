@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the streaming-serve
 path, the v2 search engine, the ``tools/perf`` row-gather microbenches, the
-graph types, and the VAD-driven serve path.
+graph types, the VAD-driven serve path, and the offline decode, eval and
+CTC-training path.
 
     python3 chip_smoke.py
 
@@ -38,11 +39,12 @@ sources in this checkout, then:
      three-state HMMs) and the ``biglm-hclg`` search (the 200k-state graph
      with the difference of a 20k-bigram and a 200k-bigram + 100k-trigram
      LM, ``lm_lanes`` 1024, so the compaction runs): the gather kernel
-     bit-exact against its plain version at their table shapes, fixed
-     loglikes decoded on the card and on the CPU with bit-identical logs,
+     bit-exact against its plain version at their table shapes,
+     ``GT_FRAMES`` frames of fixed loglikes decoded on the card and on the
+     CPU with bit-identical logs,
      LM lanes, overflow flags, words and costs, the BigLM compaction one
-     gather launch for its seven operands, then 8 concurrent 4-second
-     utterances served (``clg`` through the CLI loader's
+     gather launch for its seven operands, then 8 concurrent utterances
+     of ``GT_SECONDS`` served (``clg`` through the CLI loader's
      ``--hmmfst-file``), every reply equal to the in-process batcher, the
      gather kernel launching in each run;
   8. the VAD-driven serve path: the flagship AM reading 80 fbank + 3 pitch
@@ -60,12 +62,34 @@ sources in this checkout, then:
      and the DTW costs within ``DTW_TOL``; it prints the phase's wall time
      and RTF, pitch ms per push at 1 s and at the end of a stream, VAD ms
      per push, the pitch Viterbi's kernels per push, and the wall time
-     from the first silent push to its ``MIDDLEEND`` reply.
+     from the first silent push to its ``MIDDLEEND`` reply;
+  9. offline, through ``tools/bench.py``'s point functions and
+     ``tools/eval.py``: the headline point at full width (256 waves of 8 s
+     → fbank → the 1024/512/3 flagship → v3 search over the 200k-state
+     graph), its first ``OFFLINE_ROWS`` rows held to a CPU AM run
+     (``AM_ATOL``) and to a CPU search fed the card's log-likelihoods
+     (words and costs bit-identical); the production point over the
+     composed TLG built by ``fst/tlg.py`` (in a second process started with
+     the script, so the host build overlaps the earlier phases): the
+     ``DeviceFst`` save/load round trip equal, packing on the card equal to
+     packing on the CPU, the card search equal to the CPU search on
+     ``PROD_ROWS`` rows, packed against unpacked words; the realistic
+     point, its first ``PROD_ROWS`` rows held to a CPU search; the eval
+     tool at its quick size trained and decoded on the card (no gold
+     mismatch, WER under ``EVAL_WER``); ``TRAIN_STEPS`` CTC training steps
+     of the full-width flagship on the card and on the CPU from the same
+     weights, each loss within ``TRAIN_RTOL``.  Both search kernels must
+     launch at each of the three points and in the eval run, and after
+     each of those runs both are held bit-exactly to their plain versions
+     at every shape that run launched them at (the wrappers record the
+     shapes while ``counted`` asks them to).  The times it prints (medians
+     of ``OFFLINE_REPEATS`` repeats) are smoke figures.
 
 Any failed check raises, so the script exits non-zero; it never falls back
 to the CPU.  Its last two lines are the kernels' JSON record (the five TPU
-kernels: the gather with its launches in the serve, graph-types and VAD
-serve runs, the fetch with its launches in the serve and VAD serve runs,
+kernels: the gather with its launches in the serve, graph-types, VAD serve
+and offline runs, the fetch with its launches in the serve, VAD serve and
+offline runs,
 the three microbench row gathers with their tool-path launches, each with
 its bound and library time) and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
@@ -76,6 +100,7 @@ the host modules), which it checks at the end of the run.
 from __future__ import annotations
 
 import asyncio
+import copy
 import json
 import subprocess
 import sys
@@ -92,13 +117,15 @@ GRAPH_STATES, ARC_LANES = 200_000, 8
 SEARCH = dict(beam=14.0, beam_width=512, arc_lanes=ARC_LANES, max_active=512,
               min_active=16, eps_mode="closure")
 BATCH, FRAMES = 16, 133            # 4 s of audio after 3x subsampling
+V2_FRAMES = 67                     # the two v2 runs of phase 4: 2 s
 UTTS, UTT_SECONDS, CHUNK = 16, 4.0, 3200
 AM_ATOL = 1e-3                     # log-likelihood units
 # phase 2: the gather at the main path's shapes — (B, V, N, tables P,
 # label): the v3 relax tables at B=32, the acoustic lookup at the headline
 # point (B=256), the production relax (K=4096, F=2), and the multi-table
 # form at P = 2 (a backpointer pair), 3 (the relax winners) and 7 (the
-# BigLM compaction)
+# BigLM compaction); then shapes of the offline points (phase 9 holds
+# the kernel at every shape those runs launch it at, untimed)
 GATHER_CASES = [(32, 2048, 4096, 1, ""), (32, 4096, 1024, 1, ""),
                 (32, 2560, 1024, 1, ""), (32, 1024, 512, 1, ""),
                 (32, 512, 512, 1, ""), (32, 65536, 4096, 1, ""),
@@ -107,13 +134,19 @@ GATHER_CASES = [(32, 2048, 4096, 1, ""), (32, 4096, 1024, 1, ""),
                 (32, 8192, 4096, 1, " (production relax)"),
                 (16, 1024, 512, 2, " (v3 closure winners)"),
                 (16, 1024, 512, 3, " (v3 emit winners)"),
-                (16, 4096, 4096, 7, " (biglm compaction)")]
+                (16, 4096, 4096, 7, " (biglm compaction)"),
+                (256, 4096, 1024, 1, " (headline relax)"),
+                (256, 1024, 512, 3, " (headline winners)"),
+                (32, 41, 65536, 1, " (production acoustic)"),
+                (64, 41, 16384, 1, " (realistic acoustic)"),
+                (64, 16384, 2048, 1, " (realistic relax)")]
 # the fetch: (rows S, lanes L, [(B, K)]) — the smoke graph, the
-# production-size table at the search's 32 and 64-lane records, and the
-# wide 128-lane record
+# production-size table at the search's 32 and 64-lane records, the
+# wide 128-lane record, and the realistic point's trie
 FETCH_SHAPES = [(16, 512), (256, 512), (32, 4096)]
 FETCH_CASES = [(200_001, 32, FETCH_SHAPES), (2_500_000, 32, FETCH_SHAPES),
-               (2_500_000, 64, FETCH_SHAPES), (2_500_000, 128, [(16, 512)])]
+               (2_500_000, 64, FETCH_SHAPES), (2_500_000, 128, [(16, 512)]),
+               (54_770, 64, [(64, 1024)])]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published peak
 V3_GATHERS_PER_FRAME = 7           # phase 4: emit 5 + closure 2
 # the tools/perf row-gather microbenches (JAX tools' shapes)
@@ -125,7 +158,8 @@ LM_VOCAB = 5000
 LM1 = dict(vocab_size=LM_VOCAB, n_bigram=20_000, seed=11)
 LM2 = dict(vocab_size=LM_VOCAB, n_bigram=200_000, n_trigram=100_000,
            seed=12)
-GT_UTTS = 8
+GT_UTTS, GT_SECONDS = 8, 2.0        # the served run of each graph type
+GT_FRAMES = 34                     # card-vs-CPU decode: 1 s after subsampling
 PROFILE_FRAMES = 4                 # frames profiled for kernels/frame
 # phase 8, the VAD-driven serve path
 PITCH_DIM = 3                      # POV, normalized log pitch, delta pitch
@@ -135,6 +169,12 @@ PUSH_SAMPLES = (1600, 4000)        # 0.1-0.25 s pushes
 CPU_STREAMS = 2                    # streams of the pitch and V1 CPU runs
 PITCH_TOL = 1e-4                   # atol = rtol, the CPU tests' tolerance
 DTW_TOL = 1e-5                     # atol = rtol: fp32 cumsums in another order
+# phase 9, the offline decode, eval and training path
+OFFLINE_REPEATS = 3                # timed repeats a measurement (smoke)
+OFFLINE_ROWS, PROD_ROWS = 8, 4     # rows held to the CPU
+EVAL_STEPS, EVAL_WER = 600, 0.2    # the eval tool's quick task
+TRAIN_STEPS, TRAIN_B, TRAIN_T, TRAIN_L = 3, 16, 96, 24
+TRAIN_RTOL = 1e-3                  # card loss against CPU loss, relative
 
 
 def check(ok: bool, what: str) -> None:
@@ -177,17 +217,11 @@ def launch_floor_ms() -> float:
     return time_ms(lambda: torch.cuda._sleep(0))[0]
 
 
-def gather_case(gen, dev, B: int, V: int, N: int, dtype, label: str = "",
-                P: int = 1, floor: float = 0.0) -> dict:
-    """The gather kernel on P random [B, V] tables sharing one [B, N] index
-    (P = 1: one table of ``dtype``; P > 1: f32 and i32 tables in turn)
-    against its plain version, bit-exact, and timed beside its bound, the
-    plain version and the library call (``torch.gather`` with the index
-    cast to int64 outside the timed region; P calls for P tables).  Prints
-    one row; returns its numbers."""
+def gather_exact(gen, dev, B: int, V: int, N: int, types) -> tuple:
+    """Random [B, V] tables of ``types`` and one random [B, N] index through
+    the gather kernel and its plain version: bit-exact.  Returns (tables,
+    idx, max abs err)."""
     from asr_decoder_tpu_torch.ops import gather
-    types = [dtype] if P == 1 else [(torch.float32, torch.int32)[p % 2]
-                                    for p in range(P)]
     tables = []
     for t in types:
         if t == torch.float32:
@@ -204,8 +238,23 @@ def gather_case(gen, dev, B: int, V: int, N: int, dtype, label: str = "",
     err = 0.0
     for g, w in zip(got, want):
         check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
-              f"gather [{B},{V}]x[{B},{N}] P={P} {types} bit-exact")
+              f"gather [{B},{V}]x[{B},{N}] {types} bit-exact")
         err = max(err, (g.double() - w.double()).abs().max().item())
+    return tables, idx, err
+
+
+def gather_case(gen, dev, B: int, V: int, N: int, dtype, label: str = "",
+                P: int = 1, floor: float = 0.0) -> dict:
+    """The gather kernel on P random [B, V] tables sharing one [B, N] index
+    (P = 1: one table of ``dtype``; P > 1: f32 and i32 tables in turn)
+    against its plain version, bit-exact, and timed beside its bound, the
+    plain version and the library call (``torch.gather`` with the index
+    cast to int64 outside the timed region; P calls for P tables).  Prints
+    one row; returns its numbers."""
+    from asr_decoder_tpu_torch.ops import gather
+    types = [dtype] if P == 1 else [(torch.float32, torch.int32)[p % 2]
+                                    for p in range(P)]
+    tables, idx, err = gather_exact(gen, dev, B, V, N, types)
     idx64 = idx.long()
     ms, wms = time_ms(lambda: gather.batched_table_gather_many(tables, idx))
     pms, pwms = time_ms(lambda: gather.gather_plain_many(tables, idx))
@@ -222,6 +271,32 @@ def gather_case(gen, dev, B: int, V: int, N: int, dtype, label: str = "",
           f"ms; per eager call kernel {wms:.4f} ms plain {pwms:.4f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
                 bound_ms=bms, bound_by="bytes")
+
+
+def fetch_exact(table, state, lives) -> float:
+    """The fetch kernel against its plain version on ``state`` [B, K] at
+    each live-count vector of ``lives``: bit-exact on the live rows.
+    Returns the max abs err."""
+    from asr_decoder_tpu_torch.ops import fetch
+    (S, L), (B, K) = table.shape, state.shape
+    err = 0.0
+    for live in lives:
+        rows_live = (torch.arange(K, device=table.device)[None, :]
+                     < live[:, None])
+        want = fetch.fetch_plain(table, state)[rows_live]
+        got = fetch.fetch_records(table, state, live)[rows_live]
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"fetch [{S},{L}] B={B} K={K} live rows bit-exact")
+        if got.numel():
+            err = max(err, (got.double() - want.double()).abs().max().item())
+    return err
+
+
+def mixed_live(B: int, K: int, dev) -> torch.Tensor:
+    """Live counts 0, K, K/3, 1 a row in turn."""
+    return torch.tensor([[0, K, K // 3, 1][b % 4] for b in range(B)],
+                        dtype=torch.int32, device=dev)
 
 
 def fetch_cases(gen, dev, S: int, L: int, shapes, floor: float) -> dict:
@@ -243,19 +318,8 @@ def fetch_cases(gen, dev, S: int, L: int, shapes, floor: float) -> dict:
                                 dtype=torch.int32) for _ in range(64)]
         flat = [s.view(-1).clamp(0, S - 1) for s in states]
         full = torch.full((B,), K, dtype=torch.int32, device=dev)
-        mixed = torch.tensor([[0, K, K // 3, 1][b % 4] for b in range(B)],
-                             dtype=torch.int32, device=dev)
-        err = 0.0
-        for live in (full, mixed):
-            rows_live = (torch.arange(K, device=dev)[None, :]
-                         < live[:, None])
-            want = fetch.fetch_plain(table, states[0])[rows_live]
-            got = fetch.fetch_records(table, states[0], live)[rows_live]
-            torch.cuda.synchronize()
-            check(torch.equal(got, want),
-                  f"fetch [{S},{L}] B={B} K={K} live rows bit-exact")
-            err = max(err, (got.double() - want.double()).abs().max()
-                      .item() if got.numel() else 0.0)
+        mixed = mixed_live(B, K, dev)
+        err = fetch_exact(table, states[0], (full, mixed))
         it = iter(range(1 << 30))
         rec = dict(max_abs_err=err)
         for live, tag in ((full, "full"), (mixed, "mixed")):
@@ -555,8 +619,10 @@ def phase_am(dev, nnet) -> None:
 # phase 6: serve through the port's server
 # ----------------------------------------------------------------------
 
-def serve_check(info, utts: int, label: str) -> dict:
-    """Serve ``utts`` concurrent 4-s utterances through ``AsrServer`` over
+def serve_check(info, utts: int, label: str,
+                seconds: float = UTT_SECONDS) -> dict:
+    """Serve ``utts`` concurrent utterances of ``seconds`` through
+    ``AsrServer`` over
     ``info``; every final reply must equal an in-process
     ``BatchedStreamingDecoder`` on the same waves and chunks.  Returns the
     kernel launches of the serve run."""
@@ -566,7 +632,7 @@ def serve_check(info, utts: int, label: str) -> dict:
     from asr_decoder_tpu_torch.serving.batcher import BatchedStreamingDecoder
     from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
     rng = np.random.default_rng(3)
-    n = int(16000 * UTT_SECONDS)
+    n = int(16000 * seconds)
     waves = [(rng.standard_normal(n) * 4000).astype(np.int16)
              for _ in range(utts)]
 
@@ -609,8 +675,8 @@ def serve_check(info, utts: int, label: str) -> dict:
                         f"the in-process batcher")
     check(launches["gather"] > 0,
           f"{label}: gather kernel launched during the serve run")
-    audio = utts * UTT_SECONDS
-    print(f"{label}: {utts} concurrent {UTT_SECONDS:g}-s utterances = "
+    audio = utts * seconds
+    print(f"{label}: {utts} concurrent {seconds:g}-s utterances = "
           f"{audio:g} audio-s in {wall:.3f} s wall ({audio / wall:.2f} "
           f"audio-s/s incl. first-use warm-up), {server.dispatches} "
           f"dispatches, {server.chunks_decoded} channel-chunks; "
@@ -730,7 +796,7 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     cfg = DecoderConfig(**SEARCH)
     K = cfg.beam_width
-    ll = fixed_loglikes(FRAMES, seed=7)
+    ll = fixed_loglikes(GT_FRAMES, seed=7)
     am_cfg = (FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP))
     total = {"gather": 0, "max_abs_err": 0.0}
 
@@ -787,7 +853,8 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
           f"launches {rec['launches']}")
     total["gather"] += rec["launches"]["gather"]
     total["clg"] = rec
-    total["gather"] += serve_check(info, GT_UTTS, "serve clg")["gather"]
+    total["gather"] += serve_check(info, GT_UTTS, "serve clg",
+                                   GT_SECONDS)["gather"]
     del info
 
     # --- biglm-hclg: an info made in process with its DeviceDiffLm ------
@@ -832,7 +899,8 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
           f"card kernel launches {rec['launches']}")
     total["gather"] += rec["launches"]["gather"]
     total["biglm"] = rec
-    total["gather"] += serve_check(info, GT_UTTS, "serve biglm")["gather"]
+    total["gather"] += serve_check(info, GT_UTTS, "serve biglm",
+                                   GT_SECONDS)["gather"]
     return total
 
 
@@ -1180,12 +1248,303 @@ def phase_vad(dev, fst, i2p) -> dict:
     return dict(launches=launches, pitch=pitch)
 
 
+# ----------------------------------------------------------------------
+# phase 9: the offline decode, eval and CTC-training path
+# ----------------------------------------------------------------------
+
+def start_tlg_build() -> subprocess.Popen:
+    """Build the production point's composed TLG in a second process (host
+    work only: ARPA text, parse, ``build_tlg``, ``DeviceFst.build``, the
+    ε-closure), so it overlaps the earlier phases; it leaves the graph in
+    the checkout's ``build/`` for ``tools/bench.py:production``."""
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "from asr_decoder_tpu_torch.tools.bench import build_or_load_tlg; "
+         "build_or_load_tlg()"], stdout=subprocess.DEVNULL)
+
+
+def counted(fn, label: str) -> tuple:
+    """``fn()`` with both search kernels' counts set to 0 just before and
+    read just after; both must have launched.  Returns ``fn``'s result and
+    {"gather", "fetch": launches, "shapes": (the gather's, the fetch's
+    launch shapes in that run)}."""
+    from asr_decoder_tpu_torch.ops import fetch, gather
+    gather.launches = fetch.launches = 0
+    gather.shapes, fetch.shapes = set(), set()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        shapes = (gather.shapes, fetch.shapes)
+        gather.shapes = fetch.shapes = None
+    n = {"gather": gather.launches, "fetch": fetch.launches,
+         "shapes": shapes}
+    check(n["gather"] > 0 and n["fetch"] > 0,
+          f"offline {label}: both search kernels launched ({n})")
+    return out, n
+
+
+def hold_launched_shapes(dev, n: dict, label: str) -> float:
+    """Both kernels against their plain versions, bit-exact, at every shape
+    the run counted in ``n`` launched them at: the gather on random tables
+    of the launch's dtypes, the fetch on a random table of the launch's
+    size with every token live and with mixed live counts, dead slots
+    (negative states) among the tokens.  Launches made here are outside
+    any counted run.  Returns the max abs err."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    gshapes, fshapes = (sorted(x, key=str) for x in n["shapes"])
+    err = 0.0
+    for B, V, N, types in gshapes:
+        err = max(err, gather_exact(gen, dev, B, V, N, types)[2])
+    for S, L in sorted({x[:2] for x in fshapes}):
+        table = torch.randint(-2**31, 2**31 - 1, (S, L), generator=gen,
+                              device=dev, dtype=torch.int32)
+        for B, K in sorted(x[2:] for x in fshapes if x[:2] == (S, L)):
+            state = torch.randint(0, S, (B, K), generator=gen, device=dev,
+                                  dtype=torch.int32)
+            state[:, 5::7] = -1
+            full = torch.full((B,), K, dtype=torch.int32, device=dev)
+            err = max(err, fetch_exact(table, state,
+                                       (full, mixed_live(B, K, dev))))
+        del table
+    short = [f"[{B},{V}]x[{B},{N}] " + "+".join(str(t)[6:] for t in types)
+             for B, V, N, types in gshapes]
+    print(f"offline {label}: kernels == plain, bit-exact, at the shapes "
+          f"this run launched: gather {', '.join(short)}; fetch "
+          f"{', '.join(f'[{S},{L}] B={B} K={K}' for S, L, B, K in fshapes)}")
+    return err
+
+
+def same_paths(card: list, cpu: list, label: str) -> None:
+    """Words, arc ids and costs of two tracebacks, bit for bit."""
+    check(len(card) == len(cpu) and all(
+        a["words"] == b["words"] and a["arc_ids"] == b["arc_ids"]
+        and a["cost"] == b["cost"] for a, b in zip(card, cpu)),
+        f"offline {label}: card words/arc ids/costs == CPU")
+
+
+def offline_headline(dev) -> dict:
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.frontend.fbank import compute_fbank
+    from asr_decoder_tpu_torch.models.nnet import am_forward
+    from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
+    from asr_decoder_tpu_torch.tools import bench
+    run, n = counted(lambda: bench.headline(
+        dev, pairs=OFFLINE_REPEATS, engines=False), "headline")
+    r, k = run.report, run.keep
+    check(r["batch"] == 256 and r["graph_states"] > GRAPH_STATES
+          and r["effective_K"] == 512, f"headline at full size ({r})")
+    R = OFFLINE_ROWS
+    cpu = torch.device("cpu")
+    net = copy.deepcopy(k["nnet"]).to(cpu)
+    with torch.inference_mode():
+        feats = compute_fbank(k["fb_cfg"], k["wave"][:R].cpu())
+        ll_cpu, _ = am_forward(net.layers, feats, net.init_state(R, cpu),
+                               skip=k["skip"])
+    ll = k["ll"][:R].cpu()
+    err = (ll - ll_cpu).abs().max().item()
+    check(ll.shape == ll_cpu.shape and bool(torch.isfinite(ll).all())
+          and err <= AM_ATOL,
+          f"headline AM card vs CPU on {R} rows: max abs err {err}")
+    cs = TorchBeamSearch(k["dev"], k["i2p"], DecoderConfig(**k["cfg_kw"]),
+                         device=cpu)
+    same_paths(k["results"][:R], cs.traceback(*cs.decode(ll), k["fst"]),
+               "headline")
+    check(all(np.isfinite(x["cost"]) for x in k["results"]),
+          "headline: every row has a finite best path")
+    print(f"offline headline (smoke figures, medians of {OFFLINE_REPEATS}): "
+          f"B={r['batch']} x {r['wave_secs']:g} s, flagship 1024/512/3, "
+          f"{r['graph_states']} states, K={r['effective_K']}, "
+          f"T={r['frames']}: am_ms {r['am_ms']['median']}, search_ms "
+          f"{r['search_ms']['median']} ({r['search_ms_per_frame']} "
+          f"ms/frame), pipeline {r['pipeline_ms']['median']} ms = "
+          f"{r['audio_s_per_s']['median']} audio-s per wall-s; live mean "
+          f"{r['live_mean']}; K·F cut {r['kf_bind']}; traceback "
+          f"{r['traceback_ms']} ms; AM card vs CPU max abs err {err:.2e} "
+          f"on {R} rows, search card == CPU on them (words, costs); kernel "
+          f"launches gather {n['gather']} fetch {n['fetch']}")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "headline")
+    return n
+
+
+def offline_production(dev, tlg_proc: subprocess.Popen) -> dict:
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.models.nnet import pack_nonblank_frames
+    from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
+    from asr_decoder_tpu_torch.tools import bench
+    t0 = time.perf_counter()
+    check(tlg_proc.wait(timeout=900) == 0, "the TLG build process exited 0")
+    waited = time.perf_counter() - t0
+    run, n = counted(lambda: bench.production(dev, pairs=OFFLINE_REPEATS),
+                     "production")
+    r, k = run.report, run.keep
+    check(r["graph_cached"] and r["vocab"] == bench.TLG_FULL["vocab_size"]
+          and r["graph_states"] > 2_000_000 and r["effective_K"] == 4096,
+          f"production at full size ({r['graph_states']} states)")
+    built, loaded = k["tlg"].dev, k["dev"]
+    for name, a in vars(built).items():
+        b = getattr(loaded, name)
+        check(np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b,
+              f"DeviceFst save/load round trip: {name}")
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cp, cm = pack_nonblank_frames(k["raw"].cpu(), 0,
+                                  thresh=bench.BLANK_THRESH)
+    check(torch.equal(k["packed"].cpu(), cp)
+          and torch.equal(k["pmask"].cpu(), cm),
+          "packing on the card == packing on the CPU")
+    R = PROD_ROWS
+    cs = TorchBeamSearch(loaded, k["tlg"].i2p, DecoderConfig(**k["cfg_kw"]),
+                         device=cpu)
+    same_paths(k["results"][:R],
+               cs.traceback(*cs.decode(cp[:R], cm[:R]), k["tlg"].fst),
+               "production")
+    check(all(x["words"] for x in k["results"]),
+          "production: every row decodes words")
+    eq = r["words_packed_equal_unpacked"]
+    print(f"offline production (smoke figures): composed TLG "
+          f"{r['graph_states']} states, {r['graph_arcs']} arcs, vocab "
+          f"{r['vocab']} (host build {r['graph_build_s']} + "
+          f"{r['graph_device_build_s']} s in a second process, waited "
+          f"{waited:.1f} s, cache read {r['graph_get_s']} s; save "
+          f"{r['graph_save_s']}, load "
+          f"{r['graph_load_s']}, upload {r['graph_upload_s']} s; round trip "
+          f"equal); B={r['batch']} T={r['frames']} packed to "
+          f"{r['packed_frames']} at blank prob > 0.75 "
+          f"({r['packed_frames_at_log_0.95']} at 0.95), card == CPU "
+          f"packing; K={r['effective_K']}: search_ms "
+          f"{r['search_ms']['median']} ({r['search_ms_per_frame']} ms/frame)"
+          f", unpacked {r['unpacked_search_ms']['median']} ms; words packed "
+          f"== unpacked in {eq['equal']}/{eq['of']} rows; live mean "
+          f"{r['live_mean']}; K·F cut {r['kf_bind']}; search card == CPU on "
+          f"{R} rows ({time.perf_counter() - t0:.1f} s of CPU checks); "
+          f"kernel launches gather {n['gather']} fetch {n['fetch']}")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "production")
+    return n
+
+
+def offline_realistic(dev) -> dict:
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
+    from asr_decoder_tpu_torch.tools import bench
+    run, n = counted(lambda: bench.realistic(
+        dev, pairs=OFFLINE_REPEATS, engines=False), "realistic")
+    r, k = run.report, run.keep
+    check(r["vocab"] == 30_000 and r["effective_K"] == 1024
+          and all(x["words"] for x in k["results"]),
+          "realistic at full size, every row decodes words")
+    R = PROD_ROWS
+    t0 = time.perf_counter()
+    cs = TorchBeamSearch(k["dev"], k["i2p"], DecoderConfig(**k["cfg_kw"]),
+                         device=torch.device("cpu"))
+    same_paths(k["results"][:R],
+               cs.traceback(*cs.decode(k["ll"][:R].cpu()), k["fst"]),
+               "realistic")
+    print(f"offline realistic (smoke figures): {r['graph_states']} states, "
+          f"B={r['batch']} T={r['frames']} K={r['effective_K']}: search_ms "
+          f"{r['search_ms']['median']} ({r['search_ms_per_frame']} ms/frame)"
+          f"; K·F cut {r['kf_bind']}; search card == CPU on {R} rows (words,"
+          f" arc ids, costs; {time.perf_counter() - t0:.1f} s of CPU "
+          f"checks); kernel launches gather {n['gather']} fetch "
+          f"{n['fetch']}")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "realistic")
+    return n
+
+
+def offline_eval(dev) -> dict:
+    from asr_decoder_tpu_torch.tools import eval as eval_tool
+    out, n = counted(lambda: eval_tool.run(quick=True, steps=EVAL_STEPS,
+                                           device=dev), "eval")
+    d = out["detail"]
+    check(d["gold_mismatches"] == 0 and d["gold_checked"] > 0,
+          f"eval: device search == gold decoder ({d['gold_mismatches']} "
+          f"mismatches)")
+    check(out["value"] < EVAL_WER, f"eval: WER {out['value']} < {EVAL_WER}")
+    print(f"offline eval: quick task trained {d['train_steps']} steps on "
+          f"the card in {d['train_s']} s ({d['train_steps_per_s']} "
+          f"steps/s), ctc loss {d['ctc_loss']}; {d['utts']} utterances "
+          f"decoded at effective K {d['operating_point']['effective_K']}: "
+          f"WER {out['value']}, gold mismatches {d['gold_mismatches']} of "
+          f"{d['gold_checked']}, RTF {d['rtf']}; kernel launches gather "
+          f"{n['gather']} fetch {n['fetch']}")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "eval")
+    return n
+
+
+def offline_train(dev) -> None:
+    """``TRAIN_STEPS`` CTC steps of the full-width flagship on the card and
+    on the CPU from the same weights and batches: each loss within
+    ``TRAIN_RTOL``; ms and kernels per step on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from asr_decoder_tpu_torch.models.flagship import (ctc_train_step,
+                                                       init_opt_state,
+                                                       make_flagship)
+    rng = np.random.default_rng(21)
+    batches = []
+    for _ in range(TRAIN_STEPS + 1):
+        x = rng.standard_normal((TRAIN_B, TRAIN_T, FEAT_DIM)).astype(
+            np.float32)
+        lens = rng.integers(8, TRAIN_L + 1, TRAIN_B)
+        labels = rng.integers(1, NUM_PDFS, (TRAIN_B, TRAIN_L))
+        pads = (np.arange(TRAIN_L)[None, :] >= lens[:, None]).astype(
+            np.float32)
+        batches.append((x, (labels * (1 - pads)).astype(np.int32), pads))
+    losses, ms = {}, []
+    for d in (dev, torch.device("cpu")):
+        net = make_flagship(5, feat_dim=FEAT_DIM, num_pdfs=NUM_PDFS,
+                            device=d)
+        opt = init_opt_state(net, 1e-3)
+        state = net.init_state(TRAIN_B, d)
+        tens = [tuple(torch.from_numpy(a).to(d) for a in b) for b in batches]
+        out = []
+        for b in tens[:TRAIN_STEPS]:
+            t0 = time.perf_counter()
+            out.append(float(ctc_train_step(net, opt, *b, state)))
+            if d == dev:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        losses["card" if d == dev else "cpu"] = out
+        if d == dev:          # one more step under the profiler: its kernels
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                ctc_train_step(net, opt, *tens[TRAIN_STEPS], state)
+                torch.cuda.synchronize()
+            kernels = sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and not getattr(e, "is_user_annotation", False))
+    for g, c in zip(losses["card"], losses["cpu"]):
+        check(np.isfinite(g) and abs(g - c) <= TRAIN_RTOL * abs(c),
+              f"train: card loss {g} vs CPU loss {c} within {TRAIN_RTOL}")
+    print(f"offline train: flagship 1024/512/3, {NUM_PDFS} pdfs, "
+          f"B={TRAIN_B} T={TRAIN_T}: losses card {losses['card']} == CPU "
+          f"{losses['cpu']} within {TRAIN_RTOL} relative; card ms per step "
+          f"{[round(m, 1) for m in ms]} (the first builds the autograd "
+          f"path), {kernels} kernels a step")
+
+
+def phase_offline(dev, tlg_proc: subprocess.Popen) -> dict:
+    """Returns the search kernels' launches over the three points and the
+    eval run, and the max abs err of both against their plain versions at
+    the shapes those runs launched them at."""
+    t0 = time.perf_counter()
+    counts = []
+    for fn in (offline_headline, lambda d: offline_production(d, tlg_proc),
+               offline_realistic, offline_eval):
+        counts.append(fn(dev))
+        torch.cuda.empty_cache()
+        print(f"phase offline: at {time.perf_counter() - t0:.1f} s")
+    offline_train(dev)
+    print(f"phase offline: {time.perf_counter() - t0:.1f} s")
+    out = {k: sum(c[k] for c in counts) for k in ("gather", "fetch")}
+    out["max_abs_err"] = max(c["max_abs_err"] for c in counts)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 1
-    from asr_decoder_tpu_torch.models.flagship import make_flagship
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1197,6 +1556,17 @@ def main() -> int:
           f"{torch.version.cuda})")
     print(smi.strip().splitlines()[0])
     t0 = time.perf_counter()
+    tlg_proc = start_tlg_build()
+    try:
+        return run_phases(dev, name, t0, tlg_proc)
+    finally:
+        if tlg_proc.poll() is None:         # a phase failed before phase 9
+            tlg_proc.kill()
+            tlg_proc.wait()
+
+
+def run_phases(dev, name: str, t0: float, tlg_proc) -> int:
+    from asr_decoder_tpu_torch.models.flagship import make_flagship
     kernels = phase_kernels(dev)
     print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     rows = phase_rows(dev)
@@ -1210,7 +1580,8 @@ def main() -> int:
           f"v3 gather launches a frame {v3['gather_per_frame']} == "
           f"{V3_GATHERS_PER_FRAME}")
     for mode in ("closure", "sweeps"):
-        v2 = phase_search(dev, fst, i2p, eps_mode=mode, relax_impl="sort")
+        v2 = phase_search(dev, fst, i2p, frames=V2_FRAMES, eps_mode=mode,
+                          relax_impl="sort")
         check(v2["launches"]["gather"] > 0,
               f"gather kernel launched by v2 {mode}")
     print(f"phase search done at {time.perf_counter() - t0:.1f} s")
@@ -1225,23 +1596,30 @@ def main() -> int:
     del nnet
     vad = phase_vad(dev, fst, i2p)["launches"]
     print(f"phase vad done at {time.perf_counter() - t0:.1f} s")
+    offline = phase_offline(dev, tlg_proc)
+    print(f"phase offline done at {time.perf_counter() - t0:.1f} s")
     check_imports()
     # the search kernels' main-path launches: the serve run, the graph
-    # types' card searches and serve runs, the VAD-driven serve run (each
-    # counted from 0 just before)
-    kernels["gather"]["max_abs_err"] = max(kernels["gather"]["max_abs_err"],
-                                           graph_types["max_abs_err"])
+    # types' card searches and serve runs, the VAD-driven serve run, the
+    # three offline points and the eval run (each counted from 0 just
+    # before)
+    kernels["gather"]["max_abs_err"] = max(
+        kernels["gather"]["max_abs_err"], graph_types["max_abs_err"],
+        offline["max_abs_err"])
+    kernels["fetch"]["max_abs_err"] = max(kernels["fetch"]["max_abs_err"],
+                                          offline["max_abs_err"])
     record = {"kernels": [
         dict(name="batched_table_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/gather.cu",
              replaces="asr_decoder_tpu/ops/gather.py:43",
              launches=(launches["gather"] + graph_types["gather"]
-                       + vad["gather"]),
+                       + vad["gather"] + offline["gather"]),
              **kernels["gather"]),
         dict(name="fetch_records", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="asr_decoder_tpu/ops/fetch.py:65",
-             launches=launches["fetch"] + vad["fetch"], **kernels["fetch"]),
+             launches=launches["fetch"] + vad["fetch"] + offline["fetch"],
+             **kernels["fetch"]),
         dict(name="make_dma_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="tools/perf/bench_row_gather.py:38",

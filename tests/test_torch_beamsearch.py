@@ -26,7 +26,7 @@ from asr_decoder_tpu_torch.fst.device_fst import \
 from asr_decoder_tpu_torch.ops import beamsearch as P  # noqa: E402
 
 from test_beamsearch import random_decode_graph  # noqa: E402
-from test_torch_host_copies import to_port  # noqa: E402
+from test_torch_host_copies import assert_same, to_port  # noqa: E402
 
 
 def _cfg(**kw):
@@ -162,12 +162,17 @@ def test_lattices_match_jax():
 
 def test_tlg_decode_matches_jax():
     """A composed TLG (trie lexicon ∘ n-gram LM, ``fst/tlg.py``): LM backoff
-    ε-chains and CTC blanks through the closure stage."""
-    from asr_decoder_tpu.fst.tlg import build_tlg
-    from asr_decoder_tpu.lm.arpa import parse_arpa
+    ε-chains and CTC blanks through the closure stage.  Each package builds
+    the graph with its own ``build_tlg``; the two are equal arc for arc,
+    and the port decodes its own."""
+    from asr_decoder_tpu.fst import tlg as JT
+    from asr_decoder_tpu.lm import arpa as JA
     from asr_decoder_tpu.lm.synth_arpa import synth_arpa_text
-    fsa = parse_arpa(synth_arpa_text(vocab_size=40, n_bigram=90,
-                                     n_trigram=40, n_4gram=15, seed=2))
+    from asr_decoder_tpu_torch.fst import tlg as PT
+    from asr_decoder_tpu_torch.lm import arpa as PA
+    text = synth_arpa_text(vocab_size=40, n_bigram=90, n_trigram=40,
+                           n_4gram=15, seed=2)
+    fsa, pfsa = JA.parse_arpa(text), PA.parse_arpa(text)
     rng = np.random.default_rng(2)
     lexicon = {}
     for wname, wid in fsa.vocab.items():
@@ -178,12 +183,23 @@ def test_tlg_decode_matches_jax():
                 if p != ph[-1]:
                     ph.append(p)
             lexicon[wid] = ph
-    fst, i2p = build_tlg(lexicon, fsa, 6)
+    fst, i2p = JT.build_tlg(lexicon, fsa, 6)
+    pfst, pi2p = PT.build_tlg(lexicon, pfsa, 6)
+    assert_same(fst, pfst)
+    assert_same(i2p, pi2p)
     cfg = _cfg(beam=10.0, beam_width=128, max_active=128, min_active=4,
                arc_lanes=16)
     sc = rng.standard_normal((2, 24, 7)) * 3
     ll = (sc - np.log(np.exp(sc).sum(-1, keepdims=True))).astype(np.float32)
-    _, _, res = _decode_both(fst, np.asarray(i2p, np.int32), cfg, ll)
+    i2p = np.asarray(i2p, np.int32)
+    jax_s = J.TpuBeamSearch(DeviceFst.build(fst, arc_lanes=16), i2p, cfg)
+    port = P.TorchBeamSearch(PortDeviceFst.build(pfst, arc_lanes=16),
+                             np.asarray(pi2p, np.int32), to_port(cfg),
+                             device="cpu")
+    jo, po = jax_s.decode(ll), port.decode(ll)
+    _assert_same_run(jo, po)
+    res = port.traceback(*po, pfst)
+    assert res == jax_s.traceback(*jo, fst)
     assert all(np.isfinite(r["cost"]) for r in res)
 
 

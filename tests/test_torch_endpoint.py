@@ -12,6 +12,7 @@ Tolerance: endpoint flags, frame counts and words exact; costs within 1e-3
 """
 
 import asyncio
+import threading
 
 import numpy as np
 import pytest
@@ -227,6 +228,96 @@ def test_server_endpoint_accumulates_text(vad_infos):
         assert [a[0] for a in got] == [a[0] for a in want]
         np.testing.assert_allclose([a[1:] for a in got],
                                    [a[1:] for a in want], atol=1e-6)
+
+
+class RecordingArena:
+    """The server's arena with every method call recorded: (method, thread
+    id, thread name); ``snapshot`` results are kept by channel."""
+
+    def __init__(self, inner):
+        self._inner = inner
+        self.calls: list[tuple[str, int, str]] = []
+        self.snaps: dict[int, list] = {}
+
+    def __getattr__(self, name):
+        attr = getattr(self._inner, name)
+        if not callable(attr):
+            return attr
+
+        def recorded(*args, **kw):
+            self.calls.append((name, threading.get_ident(),
+                               threading.current_thread().name))
+            out = attr(*args, **kw)
+            if name == "snapshot":
+                self.snaps.setdefault(args[0], []).append(out)
+            return out
+        return recorded
+
+
+def test_server_calls_the_arena_on_its_device_thread(vad_infos):
+    """The arena has one writer: every arena method the server calls for
+    two concurrent endpointed streams — ``endpoint_detected`` and
+    ``init_decoding`` among them — runs on the one-thread device executor,
+    never on the event loop, and the methods that build replies from
+    snapshots run on the result pool.  A log flush racing ``step()`` would
+    hand a tick's logs to a channel twice: each segment's
+    ``frames_decoded`` equals a lone session's."""
+    _, pinfo = vad_infos
+    waves = [speech_sil_speech(40), speech_sil_speech(41, (9600, 6400,
+                                                           9600))]
+    seen = {}
+
+    async def run():
+        server = AsrServer(pinfo, SocketConfig(port=0, num_channels=4))
+        arena = server._batcher = RecordingArena(server._batcher)
+        seen["loop"] = threading.get_ident()
+        host, port = await server.start()
+        try:
+            async def one(w):
+                c = AsyncAsrClient(host, port)
+                await c.connect()
+                try:
+                    pcm = w.astype(np.int16)
+                    return [await c.send_chunk(pcm[lo:lo + PUSH],
+                                               end=lo + PUSH >= len(pcm))
+                            for lo in range(0, len(pcm), PUSH)]
+                finally:
+                    await c.close()
+            return await asyncio.gather(*(one(w) for w in waves)), arena
+        finally:
+            await server.stop()
+
+    replies, arena = asyncio.run(run())
+    writers = {"acquire", "push", "step", "ready", "endpoint_detected",
+               "snapshot", "init_decoding", "release"}
+    readers = {"get_best_path_from", "get_nbest_from", "get_lattice_from"}
+    called = {name for name, _, _ in arena.calls}
+    assert writers <= called and called <= writers | readers, called
+    device = {(tid, tname) for name, tid, tname in arena.calls
+              if name in writers}
+    assert len(device) == 1, device                 # one writer thread
+    (tid, tname), = device
+    assert tid != seen["loop"] and tname.startswith("device")
+    for name, t, tn in arena.calls:
+        assert t != seen["loop"], name              # nothing on the loop
+        if name in readers:
+            assert tn.startswith("results"), (name, tn)
+    for name in ("endpoint_detected", "init_decoding"):
+        assert sum(c[0] == name for c in arena.calls) >= 2
+    # frames decoded per segment: the server's snapshots against a session
+    by_pushes = {len(v): v for v in arena.snaps.values()}
+    assert len(by_pushes) == 2
+    for w, rs in zip(waves, replies):
+        flags, segs = run_session(OnlineDecoderSession(pinfo),
+                                  w.astype(np.int16).astype(np.float32))
+        assert any(flags)
+        snaps = by_pushes[len(rs)]
+        ends = [i for i, r in enumerate(rs)
+                if r.end_flag in (EndFlag.MIDDLEEND, EndFlag.END)]
+        assert [rs[i].end_flag == EndFlag.MIDDLEEND for i in
+                range(len(rs))] == flags
+        assert [snaps[i].frames_decoded for i in ends] == \
+            [frames for _, _, frames in segs]
 
 
 def test_clg_server_endpoints_without_alignment():

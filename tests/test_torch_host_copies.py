@@ -13,22 +13,33 @@ of the port's own classes.
 """
 
 import ast
+import contextlib
 import dataclasses
 import importlib
+import io
 import struct
+import sys
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+import asr_decoder_tpu_torch.__main__ as PMAIN
 import asr_decoder_tpu_torch.align.phone_to_word as PPW
 import asr_decoder_tpu_torch.align.word_align as PA
+import asr_decoder_tpu_torch.cli.arpa2fsa as PA2F
+import asr_decoder_tpu_torch.cli.convert_graph as PCG
+import asr_decoder_tpu_torch.cli.lat_compose as PLC
+import asr_decoder_tpu_torch.cli.lmrescale as PLR
 import asr_decoder_tpu_torch.cli.lmscore as PLS
 import asr_decoder_tpu_torch.cli.post_serve as PPS
 import asr_decoder_tpu_torch.decoder.config as PC
+import asr_decoder_tpu_torch.decoder.gold as PG
 import asr_decoder_tpu_torch.decoder.raw_lattice as PR
+import asr_decoder_tpu_torch.decoder.ref_parity as PRP
 import asr_decoder_tpu_torch.eval.synth_task as PS
 import asr_decoder_tpu_torch.frontend.audio as PAU
+import asr_decoder_tpu_torch.fst.algorithms as PALG
 import asr_decoder_tpu_torch.fst.clg as PCLG
 import asr_decoder_tpu_torch.fst.ctc_graph as PCTC
 import asr_decoder_tpu_torch.fst.determinize as PD
@@ -37,22 +48,33 @@ import asr_decoder_tpu_torch.fst.fst as PF
 import asr_decoder_tpu_torch.fst.nbest as PN
 import asr_decoder_tpu_torch.fst.symbol as PSY
 import asr_decoder_tpu_torch.fst.synthetic as PSYN
+import asr_decoder_tpu_torch.fst.tlg as PTLG
 import asr_decoder_tpu_torch.lm.arpa as PARPA
 import asr_decoder_tpu_torch.lm.compose as PCOMP
 import asr_decoder_tpu_torch.lm.synth_arpa as PSA
 import asr_decoder_tpu_torch.models.transition as PT
 import asr_decoder_tpu_torch.serving.post_service as PPOST
 import asr_decoder_tpu_torch.serving.protocol as PP
+import asr_decoder_tpu_torch.utils as PU
 import asr_decoder_tpu_torch.utils.config as PCO
+import asr_decoder_tpu_torch.utils.timer as PTM
 import asr_decoder_tpu_torch.utils.wer as PW
+import asr_decoder_tpu.__main__ as JMAIN
 import asr_decoder_tpu.align.phone_to_word as JPW
 import asr_decoder_tpu.align.word_align as JA
+import asr_decoder_tpu.cli.arpa2fsa as JA2F
+import asr_decoder_tpu.cli.convert_graph as JCG
+import asr_decoder_tpu.cli.lat_compose as JLC
+import asr_decoder_tpu.cli.lmrescale as JLR
 import asr_decoder_tpu.cli.lmscore as JLS
 import asr_decoder_tpu.cli.post_serve as JPS
 import asr_decoder_tpu.decoder.config as JC
+import asr_decoder_tpu.decoder.gold as JG
 import asr_decoder_tpu.decoder.raw_lattice as JR
+import asr_decoder_tpu.decoder.ref_parity as JRP
 import asr_decoder_tpu.eval.synth_task as JS
 import asr_decoder_tpu.frontend.audio as JAU
+import asr_decoder_tpu.fst.algorithms as JALG
 import asr_decoder_tpu.fst.clg as JCLG
 import asr_decoder_tpu.fst.ctc_graph as JCTC
 import asr_decoder_tpu.fst.determinize as JD
@@ -61,13 +83,16 @@ import asr_decoder_tpu.fst.fst as JF
 import asr_decoder_tpu.fst.nbest as JN
 import asr_decoder_tpu.fst.symbol as JSY
 import asr_decoder_tpu.fst.synthetic as JSYN
+import asr_decoder_tpu.fst.tlg as JTLG
 import asr_decoder_tpu.lm.arpa as JARPA
 import asr_decoder_tpu.lm.compose as JCOMP
 import asr_decoder_tpu.lm.synth_arpa as JSA
 import asr_decoder_tpu.models.transition as JT
 import asr_decoder_tpu.serving.post_service as JPOST
 import asr_decoder_tpu.serving.protocol as JP
+import asr_decoder_tpu.utils as JU
 import asr_decoder_tpu.utils.config as JCO
+import asr_decoder_tpu.utils.timer as JTM
 import asr_decoder_tpu.utils.wer as JW
 
 from test_lattice_ops import random_lattice
@@ -509,6 +534,301 @@ def case_post_service(tmp_path, monkeypatch):
     bad = PPOST.PostRequest(lattice=b"\x01bad")
     assert ps._process(bad).pack() == js._process(
         JPOST.PostRequest(lattice=b"\x01bad")).pack()
+
+
+def _tlg(ARPA_MOD, SA, TLG, lm_scale=1.0):
+    fsa = ARPA_MOD.parse_arpa(SA.synth_arpa_text(
+        vocab_size=40, n_bigram=120, n_trigram=60, n_4gram=20, seed=5))
+    rng = np.random.default_rng(6)
+    lexicon = {}
+    for wname, wid in fsa.vocab.items():
+        if wname.startswith("w") and wid % 7:          # some words are OOV
+            ph = [int(rng.integers(1, 9))]
+            while len(ph) < int(rng.integers(2, 5)):
+                q = int(rng.integers(1, 9))
+                if q != ph[-1]:
+                    ph.append(q)
+            lexicon[wid] = ph
+    return fsa, lexicon, TLG.build_tlg(lexicon, fsa, 8, lm_scale)
+
+
+def case_tlg(tmp_path):
+    """``build_tlg`` over a seeded 4-gram ARPA and lexicon: the composed
+    graph arc for arc, the ilabel map, the olabel anchor."""
+    for scale in (1.0, 0.5):
+        _, _, (jf, ji) = _tlg(JARPA, JSA, JTLG, scale)
+        _, _, (pf, pi) = _tlg(PARPA, PSA, PTLG, scale)
+        assert_same(jf, pf)
+        assert_same(ji, pi)
+        assert jf.num_arcs > 500 and pf.olabel_anchor == "end"
+
+
+def _gold_same(j, p, lattice=False):
+    assert type(p).__module__ == "asr_decoder_tpu_torch.decoder.gold"
+    assert (j.words, j.ilabels, j.cost, j.reached_final) == \
+        (p.words, p.ilabels, p.cost, p.reached_final)
+    if lattice:
+        assert j.lattice.to_bytes() == p.lattice.to_bytes()
+
+
+def case_gold_hclg(tmp_path):
+    """``GoldDecoder`` on a random graph, pruned and unpruned, with the
+    raw lattice."""
+    g = JSYN.random_hclg(np.random.default_rng(12), num_states=60,
+                         num_ilabels=9, num_words=7)
+    i2p = np.arange(10, dtype=np.int32)
+    ll = np.random.default_rng(13).standard_normal((9, 10)).astype(
+        np.float32)
+    for kw in (dict(beam=1e9, max_active=10000, min_active=0),
+               dict(beam=3.0, max_active=12, min_active=2,
+                    acoustic_scale=0.7)):
+        j = JG.GoldDecoder(g, i2p, JC.DecoderConfig(**kw)).decode(
+            ll, want_lattice=True)
+        p = PG.GoldDecoder(to_port(g), i2p, PC.DecoderConfig(**kw)).decode(
+            ll, want_lattice=True)
+        _gold_same(j, p, lattice=j.lattice is not None)
+        assert j.ilabels
+
+
+def _clg_pair(tmp_path):
+    rng = np.random.default_rng(5)
+    hmms = [None]
+    for _ in range(4):
+        n = int(rng.integers(2, 4))
+        src = np.repeat(np.arange(n), 2)[:-1]
+        dst = np.minimum(src + np.arange(len(src)) % 2, n - 1)
+        il = rng.integers(1, 7, len(src)).astype(np.int32)
+        il[-1] = 0
+        hmms.append(JF.StdFst.from_arcs(
+            n, 0, n - 1, src, il, np.zeros(len(src), np.int32),
+            rng.random(len(src)).astype(np.float32), dst.astype(np.int32)))
+    JCLG.write_hmm_bundle(str(tmp_path / "h.hmm"), hmms)
+    clg = _graph(JSYN, seed=6)
+    clg.arc_ilabel[clg.arc_ilabel > 4] = 1
+    clg.write_binary(str(tmp_path / "clg.fst"))
+    return (JCLG.ClgFst.load(str(tmp_path / "clg.fst"),
+                             str(tmp_path / "h.hmm")),
+            PCLG.ClgFst.load(str(tmp_path / "clg.fst"),
+                             str(tmp_path / "h.hmm")))
+
+
+def case_gold_clg(tmp_path):
+    """``GoldClgDecoder`` over a CLG layer and an HMM bundle."""
+    jg, pg = _clg_pair(tmp_path)
+    i2p = np.arange(8, dtype=np.int32)
+    ll = np.random.default_rng(14).standard_normal((10, 8)).astype(
+        np.float32)
+    kw = dict(beam=8.0, max_active=40, min_active=2)
+    _gold_same(JG.GoldClgDecoder(jg, i2p, JC.DecoderConfig(**kw)).decode(ll),
+               PG.GoldClgDecoder(pg, i2p, PC.DecoderConfig(**kw)).decode(ll))
+
+
+def case_gold_biglm(tmp_path):
+    """``GoldBigLmDecoder``: the (state, lm1, lm2) pair search with the
+    difference-LM cost."""
+    t1, t2 = _lms(JSA)
+    g = JSYN.random_hclg(np.random.default_rng(15), num_states=80,
+                         num_ilabels=9, num_words=30)
+    i2p = np.arange(10, dtype=np.int32)
+    ll = np.random.default_rng(16).standard_normal((8, 10)).astype(
+        np.float32)
+    kw = dict(beam=6.0, max_active=30, min_active=2)
+    j = JG.GoldBigLmDecoder(g, i2p, JARPA.parse_arpa(t1),
+                            JARPA.parse_arpa(t2), 0.7, 1.3,
+                            JC.DecoderConfig(**kw)).decode(ll)
+    p = PG.GoldBigLmDecoder(to_port(g), i2p, PARPA.parse_arpa(t1),
+                            PARPA.parse_arpa(t2), 0.7, 1.3,
+                            PC.DecoderConfig(**kw)).decode(ll)
+    _gold_same(j, p)
+
+
+_FAKE_REFPARITY = """#!/bin/sh
+echo frames=5
+echo nonempty=1
+echo cost=12.5 graph=4.25 acoustic=8.25
+echo words=3 1 4
+echo ilabels=2 7 1 8
+echo arcs=0:5 5:9
+echo nbest=2
+echo nb0 cost=12.5 graph=4.25 words=3 1 4
+echo nb1 cost=13.0 graph=5.0 words=3 1
+"""
+
+
+def case_ref_parity(tmp_path):
+    """No reference tree here, so ``available()`` is False in both; the
+    copy's tools directory is the repository's; ``run`` writes the same
+    graph and input files byte for byte and parses a decoder's output to
+    the same dict (a stand-in binary prints a fixed reply)."""
+    assert JRP.available() is False and PRP.available() is False
+    assert PRP.REF_ROOT == JRP.REF_ROOT
+    assert Path(PRP._TOOLS_DIR).resolve() == Path(JRP._TOOLS_DIR).resolve() \
+        == ROOT / "tools" / "refparity"
+    assert (Path(PRP._TOOLS_DIR) / "build.sh").exists()
+    assert PRP.available(str(tmp_path)) is False
+    fake = tmp_path / "refparity_main"
+    fake.write_text(_FAKE_REFPARITY)
+    fake.chmod(0o755)
+    assert PRP.build(str(tmp_path)) == JRP.build(str(tmp_path)) == str(fake)
+    g = _graph(JSYN)
+    ll = np.random.default_rng(17).standard_normal((5, 31)).astype(
+        np.float32)
+    i2p = np.arange(31, dtype=np.int64)
+    out = []
+    for M, graph, wd in ((JRP, g, "j"), (PRP, to_port(g), "p")):
+        (tmp_path / wd).mkdir()
+        out.append(M.run(str(fake), graph, ll, i2p, acoustic_scale=0.8,
+                         beam=9.0, max_active=50, min_active=3, nbest=2,
+                         workdir=str(tmp_path / wd)))
+    assert out[0] == out[1] and out[0]["words"] == [3, 1, 4]
+    assert len(out[0]["nbest"]) == 2 and out[0]["arcs"] == [(0, 5), (5, 9)]
+    for name in ("graph.fst", "input.blob"):
+        assert (tmp_path / "j" / name).read_bytes() == \
+            (tmp_path / "p" / name).read_bytes()
+
+
+def case_fst_algorithms(tmp_path):
+    """``reverse``, ``rmepsilon``, Tarjan components and ``dfs_access`` on
+    random lattices, one with a cycle."""
+    for seed in range(4):
+        lat = random_lattice(np.random.default_rng(seed + 100))
+        plat = to_port(lat)
+        assert JALG.reverse(lat).to_bytes() == PALG.reverse(plat).to_bytes()
+        if seed == 3:
+            for l, A in ((lat, JALG), (plat, PALG)):
+                l.add_arc(1, type(l.arcs(0)[0])(
+                    1, 0, type(l.arcs(0)[0].weight)(0.1, 0.0), 0))
+        assert JALG.strongly_connected_components(lat) == \
+            PALG.strongly_connected_components(plat)
+        assert_same(JALG.dfs_access(lat), PALG.dfs_access(plat))
+        if seed != 3:
+            JALG.rmepsilon(lat)
+            PALG.rmepsilon(plat)
+            assert lat.to_bytes() == plat.to_bytes()
+
+
+def case_timer_and_utils_exports(tmp_path):
+    """``RtfStats`` arithmetic, ``Timer``, and the names ``utils`` exports."""
+    j, p = JTM.RtfStats(), PTM.RtfStats()
+    for wav, run, nosil in ((4.0, 1.0, 3.0), (2.5, 0.75, 0.0)):
+        j.add(wav, run, nosil)
+        p.add(wav, run, nosil)
+    assert dataclasses.asdict(j) == dataclasses.asdict(p)
+    assert (j.rtf, j.nosil_rtf, j.speedup) == (p.rtf, p.nosil_rtf, p.speedup)
+    t = PTM.Timer()
+    assert 0.0 <= t.elapsed() < 5.0
+    names = ("ConfigOptions", "get_logger", "set_verbose_level", "vlog",
+             "Timer")
+    for n in names:
+        assert hasattr(JU, n)
+        assert getattr(PU, n).__module__.startswith(
+            "asr_decoder_tpu_torch.utils.")
+    assert PU.Timer is PTM.Timer and PU.ConfigOptions is PCO.ConfigOptions
+
+
+def _main_out(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def case_cli_lm_tools(tmp_path):
+    """``arpa2fsa`` (with and without ``--words``), ``lmrescale`` and
+    ``lat-compose`` (add and difference mode, ``--out``): the same exit
+    codes, stdout, stderr text and files from both packages' ``main``."""
+    t1, t2 = _lms(JSA)
+    (tmp_path / "g1.arpa").write_text(t1)
+    (tmp_path / "g2.arpa").write_text(t2)
+    words = JSY.SymbolTable()
+    words.add("<eps>", 0)
+    for i in range(1, 31):
+        words.add(f"w{i}", 40 - i)
+    for i, w in enumerate(("<s>", "</s>", "<unk>")):
+        words.add(w, 50 + i)
+    words.write_text(str(tmp_path / "words.txt"))
+    _word_lattice(1).write_binary(str(tmp_path / "l.lat"))
+    for tag, (A2F, LR, LC) in (("j", (JA2F, JLR, JLC)),
+                               ("p", (PA2F, PLR, PLC))):
+        d = tmp_path / tag
+        d.mkdir()
+        runs = [
+            (A2F.main, [str(tmp_path / "g2.arpa"), str(d / "g2.fsa")]),
+            (A2F.main, [f"--words={tmp_path / 'words.txt'}",
+                        str(tmp_path / "g1.arpa"), str(d / "g1w.fsa")]),
+            (A2F.main, [str(tmp_path / "g1.arpa"), str(d / "g1.fsa")]),
+            (A2F.main, ["only-one-arg"]),
+            (LR.main, ["--scale=-1.0", str(d / "g1.fsa"),
+                       str(d / "g1neg.fsa")]),
+            (LR.main, []),
+            (LC.main, ["--nbest=3", "--scale=0.8", f"--out={d / 'o.lat'}",
+                       str(tmp_path / "l.lat"), str(d / "g2.fsa")]),
+            (LC.main, ["--nbest=2", str(tmp_path / "l.lat"),
+                       str(d / "g2.fsa"), str(d / "g1.fsa")]),
+            (LC.main, [str(tmp_path / "l.lat")]),
+        ]
+        (tmp_path / f"{tag}.log").write_text(repr(
+            [(rc, out, err.replace(str(d), "<dir>")
+              .replace("asr_decoder_tpu_torch", "asr_decoder_tpu"))
+             for rc, out, err in (_main_out(m, a) for m, a in runs)]))
+    assert (tmp_path / "j.log").read_text() == (tmp_path / "p.log").read_text()
+    assert "\\t" in (tmp_path / "j.log").read_text()      # n-best lines
+    names = sorted(f.name for f in (tmp_path / "j").iterdir())
+    assert names == ["g1.fsa", "g1neg.fsa", "g1w.fsa", "g2.fsa", "o.lat"]
+    for n in names:
+        assert (tmp_path / "j" / n).read_bytes() == \
+            (tmp_path / "p" / n).read_bytes()
+
+
+def case_cli_convert_graph(tmp_path):
+    """``convert-graph``: a graph binary and an HMM bundle from a list of
+    HMM graphs; the port's goes through its own ``cli/_model.load_graph``."""
+    g = _graph(JSYN)
+    g.write_binary(str(tmp_path / "in.fst"))
+    hmm_paths = []
+    for i in range(3):
+        h = JSYN.random_hclg(np.random.default_rng(20 + i), num_states=5,
+                             num_ilabels=4, num_words=2)
+        h.write_binary(str(tmp_path / f"h{i}.fst"))
+        hmm_paths.append(str(tmp_path / f"h{i}.fst"))
+    (tmp_path / "hmm.list").write_text("\n".join(hmm_paths) + "\n")
+    logs = []
+    for tag, CG in (("j", JCG), ("p", PCG)):
+        d = tmp_path / tag
+        d.mkdir()
+        runs = [[str(tmp_path / "in.fst"), str(d / "out.fst")],
+                [f"--hmm-list={tmp_path / 'hmm.list'}", str(d / "hmm.bundle")],
+                [str(tmp_path / "in.fst")]]
+        logs.append([(rc, out, err.replace(str(d), "<dir>"))
+                     for rc, out, err in (_main_out(CG.main, a)
+                                          for a in runs)])
+    assert logs[0] == logs[1] and [r[0] for r in logs[0]] == [0, 0, 2]
+    for n in ("out.fst", "hmm.bundle"):
+        assert (tmp_path / "j" / n).read_bytes() == \
+            (tmp_path / "p" / n).read_bytes()
+    assert (tmp_path / "p" / "out.fst").read_bytes() == \
+        (tmp_path / "in.fst").read_bytes()
+    assert PCG.load_graph.__module__ == "asr_decoder_tpu_torch.cli._model"
+
+
+def case_main_table(tmp_path, monkeypatch):
+    """``python -m``'s tool table: the same tools and descriptions, each
+    pointing at the port's module of the same name, which exists and has a
+    ``main``; the help text and the unknown-tool reply."""
+    assert list(PMAIN.TOOLS) == list(JMAIN.TOOLS)
+    for name, (jmod, jdoc) in JMAIN.TOOLS.items():
+        pmod, pdoc = PMAIN.TOOLS[name]
+        assert pdoc == jdoc
+        assert pmod == "asr_decoder_tpu_torch." + jmod.partition(".")[2]
+        assert callable(importlib.import_module(pmod).main)
+    got = []
+    for M in (JMAIN, PMAIN):
+        for argv in (["x", "--help"], ["x"], ["x", "no-such-tool"]):
+            monkeypatch.setattr(sys, "argv", argv)
+            rc, out, err = _main_out(lambda _: M.main(), None)
+            got.append((rc, out.replace("asr_decoder_tpu_torch",
+                                        "asr_decoder_tpu"), err))
+    assert got[:3] == got[3:] and [g[0] for g in got[:3]] == [0, 2, 2]
 
 
 CASES = {name[5:]: fn for name, fn in list(globals().items())

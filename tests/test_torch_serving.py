@@ -273,6 +273,11 @@ def test_port_imports_no_jax():
         "assert 'asr_decoder_tpu_torch.serving.server' in mods\n"
         "assert 'asr_decoder_tpu_torch.tools.perf.bench_points' in mods\n"
         "assert 'asr_decoder_tpu_torch.fst.device_fst' in mods\n"
+        "for m in ('tools.bench', 'tools.eval', 'eval.harness', "
+        "'decoder.gold', 'decoder.ref_parity', 'fst.tlg', 'fst.algorithms', "
+        "'utils.timer', 'cli.arpa2fsa', 'cli.convert_graph', "
+        "'cli.lat_compose', 'cli.lmrescale', '__main__'):\n"
+        "    assert 'asr_decoder_tpu_torch.' + m in mods, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'asr_decoder_tpu'))\n"
         "print(len(mods), bad)\n"
