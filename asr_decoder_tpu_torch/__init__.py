@@ -48,6 +48,7 @@ Ported (module for module):
                                  device), with energy-VAD endpointing:
                                  MIDDLEEND replies, text and alignment
                                  accumulated across segments
+  serving/batcher.py ``mesh=``  — the arena dp-sharded over a device mesh
   serving/v1_session.py        — the VAD-orchestrated V1 session
   cli/_model.py, serve.py, decode.py (``--hmmfst-file`` loads a clg graph)
   utils/profiling.py           — torch.profiler ranges and Chrome traces
@@ -59,22 +60,35 @@ Ported (module for module):
                                  tools (bench_row_gather, bench_dma_variants,
                                  bench_points, profile_production with
                                  ``--tlg``)
+  parallel/mesh.py, decode.py  — a (dp, tp) mesh of torch.devices in one
+                                 process: contiguous dp row blocks, search
+                                 replicas a device (dp_decode), affine rows
+                                 split over tp (TpAffine, shard_model)
+  parallel/multihost.py,       — torch.distributed: one rank per device, a
+  _mh_worker.py                  global DeviceMesh ("dp", "tp"), tp blocks
+                                 joined by all_gather, the gloo/NCCL selftest;
+                                 per-host arenas
+  parallel/dryrun.py           — the ``__graft_entry__.py`` dry run: entry()
+                                 and dryrun_multichip(n)
+  native/*.cc, fst/native_nbest.py, serving/native_client.py — the C++
+                                 n-shortest and streaming client (the JAX
+                                 sources byte for byte, built with g++ at
+                                 first use)
 
 Copied from ``asr_decoder_tpu`` (host-only numpy; the same code, imports
 rewritten, file formats unchanged): ``fst/{fst,semiring,symbol,lattice,
 determinize,nbest,device_fst,clg,ctc_graph,synthetic,tlg,algorithms}.py``,
 ``decoder/{config,raw_lattice,gold,ref_parity}.py``,
 ``lm/{arpa,synth_arpa,compose}.py``, ``utils/{config,logging,wer,timer}.py``,
-``serving/{protocol,client,post_service}.py`` (the post service keeps only
-the Python n-shortest), ``cli/{lmscore,post_serve,arpa2fsa,convert_graph,
+``serving/{protocol,client,post_service}.py``, ``cli/{lmscore,post_serve,arpa2fsa,convert_graph,
 lat_compose,lmrescale}.py``, ``__main__.py`` (``python -m
 asr_decoder_tpu_torch <tool>``), ``frontend/audio.py``,
 ``align/{word_align,phone_to_word}.py``, ``eval/synth_task.py``,
 ``models/transition.py``.
 
-Not ported yet (ROADMAP §1): the native host paths
-(``fst/native_nbest.py``, ``serving/native_client.py``, ``native/*.cc``)
-and multi-device (``parallel/*`` with the ``__graft_entry__.py`` dry run).
+Nothing of ``asr_decoder_tpu`` is left to port (ROADMAP §1).  The
+multi-device paths are tested on the CPU (a mesh of ``["cpu"] * n``, gloo
+ranks) and run on one card as a mesh whose entries repeat ``cuda:0``.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,10 @@
 """Batched multi-stream decoding: channel arena + dynamic batcher.
 
-Port of ``asr_decoder_tpu/serving/batcher.py`` without the multi-device
-mesh (ROADMAP §1): many streaming channels packed into one AM forward +
-one search advance per tick (ref: src/gpu-asr/v1-gpu-kaldi-worker-pool.h
-:20-202, BatchedThreadedNnet3CudaOnlinePipeline + DynamicBatcher).  Channel
-slots have an explicit acquire/release lifecycle.
+Port of ``asr_decoder_tpu/serving/batcher.py``: many streaming channels
+packed into one AM forward + one search advance per tick (ref:
+src/gpu-asr/v1-gpu-kaldi-worker-pool.h:20-202,
+BatchedThreadedNnet3CudaOnlinePipeline + DynamicBatcher).  Channel slots
+have an explicit acquire/release lifecycle.
 
 Per-channel device state lives in fixed-shape arenas on ``info.device`` —
 beam i32/f32[B,K], LSTM carries f32[B,H] — and idle channels ride along
@@ -25,6 +25,15 @@ silence: ``endpoint_detected(cid)`` applies the session's endpoint rule, and
 ``init_decoding(cid)`` restarts one channel's search mid-stream (its
 feature and AM state kept), delivering the pending logs first, as
 ``release`` does.
+
+With a ``mesh`` (``parallel/mesh.py``) the arena is dp-sharded: channels
+``[i·B/dp, (i+1)·B/dp)`` form dp block ``i``, whose beam rows, LSTM carries
+and feature chunk live on the block's device, searched by a replica of the
+search there (``parallel/decode.py:shard_search``) through a replica of the
+AM (the AM is replicated, as in JAX).  A tick runs the blocks one after
+another on the one device thread; each block writes its own replica's
+tensors, and logs and snapshots are read back in channel order.  Without a
+mesh the arena is one block on ``info.device``.
 
 Beam and logs are handled generically over the three searches (hclg, clg,
 biglm-hclg), by the JAX rule: the beam is a NamedTuple of [B, ...] lanes;
@@ -83,6 +92,20 @@ class _Channel:
 
 
 @dataclass
+class _Block:
+    """One dp block of the arena: channels ``[lo, hi)`` on ``device``, with
+    the search and AM layers there and the block's device state."""
+    lo: int
+    hi: int
+    device: torch.device
+    search: object
+    layers: list
+    beam: tuple                    # the search's beam lanes, [hi - lo, ...]
+    beam_init_row: tuple           # lanes [1, ...]: the initial beam
+    am_state: list
+
+
+@dataclass
 class ChannelSnapshot:
     """Host copy of one channel's result state; safe to read from any
     thread while the arena keeps stepping."""
@@ -98,22 +121,53 @@ class BatchedStreamingDecoder:
     ``step()`` performs one AM forward + search advance over every channel
     with ready frames (the DynamicBatcher::Push/compute cycle)."""
 
-    def __init__(self, info: OnlineDecoderInfo, num_channels: int):
+    def __init__(self, info: OnlineDecoderInfo, num_channels: int,
+                 mesh=None):
+        """``mesh``: an optional ``parallel.mesh.Mesh`` that dp-shards the
+        channel arena over its ``dp`` axis (graph and AM replicated), so
+        one arena serves streams across every device of the mesh
+        (BASELINE config 5; ``num_channels`` must divide by the dp
+        size)."""
+        from asr_decoder_tpu_torch.parallel.decode import (shard_beam_state,
+                                                           shard_search)
+        from asr_decoder_tpu_torch.parallel.mesh import (data_sharding,
+                                                         replicate_layers)
         self.info = info
         self.B = num_channels
+        self.mesh = mesh
         self._channels: list[_Channel | None] = [None] * num_channels
         self._free = list(range(num_channels))[::-1]
         beam, init_log = info.search.init_state(num_channels)
-        self._beam = beam
-        # init rows are identical across the arena: keep row 0
-        self._beam_init_row = type(beam)(*(a[:1].clone() for a in beam))
+        if mesh is None:
+            rows = [(slice(0, num_channels), info.device)]
+            searches, beams = [info.search], [beam]
+        else:
+            rows = data_sharding(mesh, num_channels)
+            searches = shard_search(mesh, info.search)
+            beams = shard_beam_state(mesh, beam)
+        layers = {}
+        self._rows = rows[0][0].stop           # channels a block
+        self._blocks: list[_Block] = []
+        for (r, dev), search, beam in zip(rows, searches, beams):
+            if dev not in layers:
+                layers[dev] = replicate_layers(info.am_layers, dev)
+            self._blocks.append(_Block(
+                r.start, r.stop, dev, search, layers[dev], beam,
+                # init rows are identical across the arena: keep row 0
+                type(beam)(*(a[:1].clone() for a in beam)),
+                [l.init_state(r.stop - r.start, dev) for l in layers[dev]]))
         self._init_log = type(init_log)(*(_channel_rows(a, 0)
                                           for a in host_log(init_log)))
-        self._am_state = info.init_am_state(num_channels)
         self._feat_dim = info.am_layers[0].input_dim if info.am_layers else 0
         # the previous tick's logs, on their way to the host:
-        # (advanced cids, valid frames, host log, host loglikes, ready event)
+        # (advanced cids, valid frames, [(host log, host loglikes)] a
+        # block, ready events)
         self._pending: tuple | None = None
+
+    def _block(self, cid: int) -> tuple[_Block, int]:
+        """Channel ``cid``'s block and its row there."""
+        i, row = divmod(cid, self._rows)
+        return self._blocks[i], row
 
     # -- deferred log delivery ---------------------------------------------
     def _flush_logs(self) -> None:
@@ -121,18 +175,19 @@ class BatchedStreamingDecoder:
         device→host copy, not for later ticks)."""
         if self._pending is None:
             return
-        advanced, valid, log, loglikes, ready = self._pending
+        advanced, valid, host, ready = self._pending
         self._pending = None
-        if ready is not None:
-            ready.synchronize()
-        log = [t.numpy() for t in log]
-        ll = loglikes.numpy()
+        for event in ready:
+            event.synchronize()
+        host = [([t.numpy() for t in log], ll.numpy()) for log, ll in host]
         for cid in advanced:
             ch = self._channels[cid]
             v = int(valid[cid])
+            i, row = divmod(cid, self._rows)
+            log, ll = host[i]
             ch.chunk_logs.append(type(self._init_log)(
-                *(_channel_rows(a, cid, v) for a in log)))
-            ch.loglikes.append(ll[cid, :v].copy())
+                *(_channel_rows(a, row, v) for a in log)))
+            ch.loglikes.append(ll[row, :v].copy())
             ch.frames_decoded += v
 
     # -- channel lifecycle -------------------------------------------------
@@ -147,16 +202,18 @@ class BatchedStreamingDecoder:
             featbuf=FeatureBuffer(info.left, info.right, info.splice_offsets),
             vad=info.make_vad())
         self._reset_beam_row(cid)
-        for st in self._am_state:
+        blk, row = self._block(cid)
+        for st in blk.am_state:
             for v in st.values():
-                v[cid] = 0.0
+                v[row] = 0.0
         return cid
 
     def _reset_beam_row(self, cid: int) -> None:
-        """Row ``cid`` of every beam lane back to the initial beam (each
-        search's beam is a NamedTuple of [B, ...] lanes)."""
-        for arena, row in zip(self._beam, self._beam_init_row):
-            arena[cid] = row[0]
+        """Channel ``cid``'s row of every beam lane back to the initial
+        beam (each search's beam is a NamedTuple of [B, ...] lanes)."""
+        blk, row = self._block(cid)
+        for arena, init in zip(blk.beam, blk.beam_init_row):
+            arena[row] = init[0]
 
     def release(self, cid: int) -> None:
         if self._channels[cid] is None:
@@ -258,23 +315,26 @@ class BatchedStreamingDecoder:
                 ch.drained = True
         if not advanced:
             return []
-        dev = info.device
-        loglikes, new_am, mask = info.score(torch.from_numpy(feats).to(dev),
-                                            self._am_state, valid)
-        # idle channels keep their LSTM carries bit-exactly
-        active = torch.from_numpy(valid > 0).to(dev)[:, None]
-        self._am_state = [{k: torch.where(active, n[k], o[k]) for k in o}
-                          for n, o in zip(new_am, self._am_state)]
-        self._beam, log = info.search.advance(self._beam, loglikes, mask)
-        # the previous tick's copy was queued before this tick's work, so
-        # waiting for it here does not wait for this tick
+        host, ready = [], []
+        for blk in self._blocks:
+            rows = slice(blk.lo, blk.hi)
+            loglikes, new_am, mask = info.score(
+                torch.from_numpy(feats[rows]).to(blk.device), blk.am_state,
+                valid[rows], blk.layers)
+            # idle channels keep their LSTM carries bit-exactly
+            active = torch.from_numpy(valid[rows] > 0).to(blk.device)[:, None]
+            blk.am_state = [{k: torch.where(active, n[k], o[k]) for k in o}
+                            for n, o in zip(new_am, blk.am_state)]
+            blk.beam, log = blk.search.advance(blk.beam, loglikes, mask)
+            host.append(([t.to("cpu", non_blocking=True) for t in log],
+                         loglikes.to("cpu", non_blocking=True)))
+            if blk.device.type == "cuda":
+                ready.append(torch.cuda.Event())
+                ready[-1].record(torch.cuda.current_stream(blk.device))
+        # the previous tick's copies were queued before this tick's work, so
+        # waiting for them here does not wait for this tick
         self._flush_logs()
-        host = [t.to("cpu", non_blocking=True) for t in (*log, loglikes)]
-        ready = None
-        if dev.type == "cuda":
-            ready = torch.cuda.Event()
-            ready.record()
-        self._pending = (advanced, valid, host[:-1], host[-1], ready)
+        self._pending = (advanced, valid, host, ready)
         return advanced
 
     def drain(self) -> None:
@@ -292,9 +352,10 @@ class BatchedStreamingDecoder:
     def snapshot(self, cid: int) -> ChannelSnapshot:
         self._flush_logs()
         ch = self._channels[cid]
+        blk, row = self._block(cid)
         return ChannelSnapshot(
-            beam=type(self._beam)(*(to_host(a[cid:cid + 1])
-                                    for a in self._beam)),
+            beam=type(blk.beam)(*(to_host(a[row:row + 1])
+                                  for a in blk.beam)),
             chunk_logs=list(ch.chunk_logs),
             loglikes=list(ch.loglikes),
             frames_decoded=ch.frames_decoded)

@@ -21,6 +21,7 @@ import asyncio
 import struct
 from dataclasses import dataclass, field
 
+from asr_decoder_tpu_torch.fst import native_nbest
 from asr_decoder_tpu_torch.fst.lattice import Lattice
 from asr_decoder_tpu_torch.fst.nbest import nshortest
 from asr_decoder_tpu_torch.lm.arpa import Fsa
@@ -195,13 +196,19 @@ class PostServer:
             res = self.rescorer.rescore(lat, req.mode, scale)
             lat_bytes = res.to_bytes()
             out = PostResponse(lattice=lat_bytes)
-            # lattice→ranked results: the Python n-shortest (the JAX
-            # package's fallback path; its native C++ n-shortest,
-            # fst/native_nbest.py, is not part of this package)
-            for p in nshortest(res, max(1, req.nbest)):
-                words = [a.olabel for a in p.arcs if a.olabel != 0]
-                out.results.append(PostResult(words, p.graph_cost,
-                                              p.am_cost))
+            # lattice→ranked results: native C++ n-shortest when a
+            # toolchain exists (fst/native_nbest.py, parity-tested vs the
+            # Python path), Python fallback otherwise
+            got = native_nbest.nshortest_bytes(lat_bytes,
+                                               max(1, req.nbest))
+            if got is not None:
+                out.results = [PostResult(r["words"], r["graph_cost"],
+                                          r["am_cost"]) for r in got]
+            else:
+                for p in nshortest(res, max(1, req.nbest)):
+                    words = [a.olabel for a in p.arcs if a.olabel != 0]
+                    out.results.append(PostResult(words, p.graph_cost,
+                                                  p.am_cost))
             return out
         except Exception as e:          # malformed input must not kill
             LOG.warning("rescore failed: %s", e)

@@ -28,6 +28,7 @@ import torch
 from asr_decoder_tpu_torch.decoder.config import DecoderConfig
 from asr_decoder_tpu_torch.fst.determinize import (DeterminizeError,
                                                    determinize_lattice)
+from asr_decoder_tpu_torch.fst import native_nbest
 from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.fst.fst import StdFst
 from asr_decoder_tpu_torch.fst.nbest import nshortest
@@ -231,15 +232,17 @@ class OnlineDecoderInfo:
     def init_am_state(self, batch: int) -> list[dict]:
         return [l.init_state(batch, self.device) for l in self.am_layers]
 
-    def score(self, feats: torch.Tensor, am_state, valid: np.ndarray):
-        """One chunk through the AM: feats f32[B, C, D] on the device,
-        ``valid`` host i32[B] real frames per row → (loglikes [B, C', V],
-        new AM state, host frame mask bool[B, C'])."""
+    def score(self, feats: torch.Tensor, am_state, valid: np.ndarray,
+              layers=None):
+        """One chunk through the AM (``am_layers``, or their replica
+        ``layers`` on another device): feats f32[B, C, D] on the layers'
+        device, ``valid`` host i32[B] real frames per row → (loglikes [B,
+        C', V], new AM state, host frame mask bool[B, C'])."""
         ac = self.am_config
         # skip_copy mode subsamples + score-copies inside am_forward; each
         # chunk is phase-aligned (chunk_frames % (skip+1) == 0)
         loglikes, am_state = am_forward(
-            self.am_layers, feats, am_state,
+            self.am_layers if layers is None else layers, feats, am_state,
             do_softmax=ac.do_softmax, do_log=ac.do_log,
             sub_prior=ac.sub_prior, block_pdf_pdfid=ac.block_pdf_pdfid,
             block_scale=ac.block_scale, skip_block=ac.skip_block,
@@ -304,8 +307,17 @@ def lattice_from_logs(info: OnlineDecoderInfo, init_log, logs, lls,
 
 
 def nbest_from_lattice(info: OnlineDecoderInfo, lat, n: int) -> list[dict]:
+    """n-best word sequences of a lattice: the native C++ n-shortest when a
+    toolchain exists (``fst/native_nbest.py``, exact parity with the Python
+    path), else the Python one — which then skips serializing the
+    lattice."""
     if lat is None or not lat.num_states:
         return []
+    if native_nbest.available():
+        return [dict(words=r["words"],
+                     text=" ".join(info.words.words(r["words"])),
+                     graph_cost=r["graph_cost"], am_cost=r["am_cost"])
+                for r in native_nbest.nshortest_bytes(lat.to_bytes(), n)]
     out = []
     for p in nshortest(lat, n):
         words = [a.olabel for a in p.arcs if a.olabel != 0]

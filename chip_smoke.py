@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU: the streaming-serve
 path, the v2 search engine, the ``tools/perf`` row-gather microbenches, the
-graph types, the VAD-driven serve path, and the offline decode, eval and
-CTC-training path.
+graph types, the VAD-driven serve path, the offline decode, eval and
+CTC-training path, and the multi-device and native host paths.
 
     python3 chip_smoke.py
 
@@ -83,7 +83,32 @@ sources in this checkout, then:
      each of those runs both are held bit-exactly to their plain versions
      at every shape that run launched them at (the wrappers record the
      shapes while ``counted`` asks them to).  The times it prints (medians
-     of ``OFFLINE_REPEATS`` repeats) are smoke figures.
+     of ``OFFLINE_REPEATS`` repeats) are smoke figures;
+ 10. multi-device on the one card (a mesh whose entries repeat ``cuda:0``)
+     and the native host paths: phase 4's loglikes decoded by
+     ``parallel/decode.py:dp_decode`` at dp = 2 and 4, every leaf bit-
+     identical to the unsharded card decode, with the ms/frame and kernel
+     launches of dp = 1/2/4 (each mesh warmed first); ``UTTS`` 4-s streams
+     through the dp = 2 arena (``BatchedStreamingDecoder(mesh=...)``), words
+     and arc ids equal to the unsharded arena, costs within
+     ``ARENA_COST_RTOL`` of their size, beside the AM's rows 0-7 computed
+     alone against the same rows of the 16-row call on the card and on the
+     CPU (the cause of the costs' last bits); phase 7's BigLM
+     search at dp = 2, bit-identical with equal overflow counts; both
+     kernels bit-exact against their plain versions at every shape those
+     runs launched; the full-width flagship with its affine rows split
+     over tp = 2, within ``AM_ATOL`` of the unsharded AM and decoding to the
+     same words; two simulated hosts' arenas equal to per-stream sessions,
+     the second unaffected when the first is dropped, and the one-rank NCCL
+     selftest (``MH_OK``, started once the timed runs are done);
+     ``native_nbest.available()``, the native n-best equal to the Python one
+     (n = ``NBEST_N``) on the determinized lattices of ``NATIVE_UTTS`` of
+     phase 6's utterances, timed both ways as the session and batcher reach
+     it (``nbest_from_lattice``, the lattice's serialization included) and
+     as the post service does (on the bytes it makes for its reply); the C++
+     client (``NativeAsrClient``) against the Python client through the
+     port's server, texts and word alignments equal; the dry run
+     ``parallel/dryrun.py:dryrun_multichip(4)`` (dp 2 × tp 2).
 
 Any failed check raises, so the script exits non-zero; it never falls back
 to the CPU.  Its last two lines are the kernels' JSON record (the five TPU
@@ -91,7 +116,8 @@ kernels: the gather with its launches in the serve, graph-types, VAD serve
 and offline runs, the fetch with its launches in the serve, VAD serve and
 offline runs,
 the three microbench row gathers with their tool-path launches, each with
-its bound and library time) and
+its bound and library time; the search kernels' launches include
+phase 10's dp decodes, dp arena and BigLM dp decode) and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
 of the JAX package ``asr_decoder_tpu`` (the port keeps its own copies of
 the host modules), which it checks at the end of the run.
@@ -175,6 +201,12 @@ OFFLINE_ROWS, PROD_ROWS = 8, 4     # rows held to the CPU
 EVAL_STEPS, EVAL_WER = 600, 0.2    # the eval tool's quick task
 TRAIN_STEPS, TRAIN_B, TRAIN_T, TRAIN_L = 3, 16, 96, 24
 TRAIN_RTOL = 1e-3                  # card loss against CPU loss, relative
+# phase 10, multi-device on one card and the native host paths
+DP_MESHES = (2, 4)                 # dp sizes of the dp decode (["cuda:0"]*dp)
+NATIVE_UTTS, NBEST_N = 4, 10       # phase 6 utterances held native == Python
+ARENA_COST_RTOL = 1e-5             # dp arena path costs, of |cost|: the AM at B/dp
+                                   # rows (6.5e-6 read on the H100)
+NCCL_TIMEOUT_S = 240.0             # the one-rank NCCL selftest's wall limit
 
 
 def check(ok: bool, what: str) -> None:
@@ -619,6 +651,13 @@ def phase_am(dev, nnet) -> None:
 # phase 6: serve through the port's server
 # ----------------------------------------------------------------------
 
+def serve_waves(utts: int, seconds: float) -> list[np.ndarray]:
+    """The served runs' int16-valued waves, from seed 3."""
+    rng = np.random.default_rng(3)
+    return [(rng.standard_normal(int(16000 * seconds)) * 4000)
+            .astype(np.int16) for _ in range(utts)]
+
+
 def serve_check(info, utts: int, label: str,
                 seconds: float = UTT_SECONDS) -> dict:
     """Serve ``utts`` concurrent utterances of ``seconds`` through
@@ -631,10 +670,8 @@ def serve_check(info, utts: int, label: str,
     from asr_decoder_tpu_torch.ops import fetch, gather
     from asr_decoder_tpu_torch.serving.batcher import BatchedStreamingDecoder
     from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
-    rng = np.random.default_rng(3)
     n = int(16000 * seconds)
-    waves = [(rng.standard_normal(n) * 4000).astype(np.int16)
-             for _ in range(utts)]
+    waves = serve_waves(utts, seconds)
 
     async def serve():
         server = AsrServer(info, SocketConfig(port=0, num_channels=utts))
@@ -717,7 +754,7 @@ def phase_serve(dev, nnet, fst) -> dict:
     launches = serve_check(info, UTTS, "serve")
     check(launches["fetch"] > 0, "fetch kernel launched during the serve "
                                  "run")
-    return launches
+    return launches, info
 
 
 # ----------------------------------------------------------------------
@@ -901,6 +938,7 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     total["biglm"] = rec
     total["gather"] += serve_check(info, GT_UTTS, "serve biglm",
                                    GT_SECONDS)["gather"]
+    total["biglm_search"] = s
     return total
 
 
@@ -1263,11 +1301,11 @@ def start_tlg_build() -> subprocess.Popen:
          "build_or_load_tlg()"], stdout=subprocess.DEVNULL)
 
 
-def counted(fn, label: str) -> tuple:
+def counted(fn, label: str, need=("gather", "fetch")) -> tuple:
     """``fn()`` with both search kernels' counts set to 0 just before and
-    read just after; both must have launched.  Returns ``fn``'s result and
-    {"gather", "fetch": launches, "shapes": (the gather's, the fetch's
-    launch shapes in that run)}."""
+    read just after; the kernels in ``need`` must have launched.  Returns
+    ``fn``'s result and {"gather", "fetch": launches, "shapes": (the
+    gather's, the fetch's launch shapes in that run)}."""
     from asr_decoder_tpu_torch.ops import fetch, gather
     gather.launches = fetch.launches = 0
     gather.shapes, fetch.shapes = set(), set()
@@ -1279,8 +1317,8 @@ def counted(fn, label: str) -> tuple:
         gather.shapes = fetch.shapes = None
     n = {"gather": gather.launches, "fetch": fetch.launches,
          "shapes": shapes}
-    check(n["gather"] > 0 and n["fetch"] > 0,
-          f"offline {label}: both search kernels launched ({n})")
+    check(all(n[k] > 0 for k in need),
+          f"{label}: {' and '.join(need)} launched ({n})")
     return out, n
 
 
@@ -1309,7 +1347,7 @@ def hold_launched_shapes(dev, n: dict, label: str) -> float:
         del table
     short = [f"[{B},{V}]x[{B},{N}] " + "+".join(str(t)[6:] for t in types)
              for B, V, N, types in gshapes]
-    print(f"offline {label}: kernels == plain, bit-exact, at the shapes "
+    print(f"{label}: kernels == plain, bit-exact, at the shapes "
           f"this run launched: gather {', '.join(short)}; fetch "
           f"{', '.join(f'[{S},{L}] B={B} K={K}' for S, L, B, K in fshapes)}")
     return err
@@ -1330,7 +1368,7 @@ def offline_headline(dev) -> dict:
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     from asr_decoder_tpu_torch.tools import bench
     run, n = counted(lambda: bench.headline(
-        dev, pairs=OFFLINE_REPEATS, engines=False), "headline")
+        dev, pairs=OFFLINE_REPEATS, engines=False), "offline headline")
     r, k = run.report, run.keep
     check(r["batch"] == 256 and r["graph_states"] > GRAPH_STATES
           and r["effective_K"] == 512, f"headline at full size ({r})")
@@ -1363,7 +1401,7 @@ def offline_headline(dev) -> dict:
           f"{r['traceback_ms']} ms; AM card vs CPU max abs err {err:.2e} "
           f"on {R} rows, search card == CPU on them (words, costs); kernel "
           f"launches gather {n['gather']} fetch {n['fetch']}")
-    n["max_abs_err"] = hold_launched_shapes(dev, n, "headline")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "offline headline")
     return n
 
 
@@ -1376,7 +1414,7 @@ def offline_production(dev, tlg_proc: subprocess.Popen) -> dict:
     check(tlg_proc.wait(timeout=900) == 0, "the TLG build process exited 0")
     waited = time.perf_counter() - t0
     run, n = counted(lambda: bench.production(dev, pairs=OFFLINE_REPEATS),
-                     "production")
+                     "offline production")
     r, k = run.report, run.keep
     check(r["graph_cached"] and r["vocab"] == bench.TLG_FULL["vocab_size"]
           and r["graph_states"] > 2_000_000 and r["effective_K"] == 4096,
@@ -1419,7 +1457,7 @@ def offline_production(dev, tlg_proc: subprocess.Popen) -> dict:
           f"{r['live_mean']}; K·F cut {r['kf_bind']}; search card == CPU on "
           f"{R} rows ({time.perf_counter() - t0:.1f} s of CPU checks); "
           f"kernel launches gather {n['gather']} fetch {n['fetch']}")
-    n["max_abs_err"] = hold_launched_shapes(dev, n, "production")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "offline production")
     return n
 
 
@@ -1428,7 +1466,7 @@ def offline_realistic(dev) -> dict:
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     from asr_decoder_tpu_torch.tools import bench
     run, n = counted(lambda: bench.realistic(
-        dev, pairs=OFFLINE_REPEATS, engines=False), "realistic")
+        dev, pairs=OFFLINE_REPEATS, engines=False), "offline realistic")
     r, k = run.report, run.keep
     check(r["vocab"] == 30_000 and r["effective_K"] == 1024
           and all(x["words"] for x in k["results"]),
@@ -1447,14 +1485,14 @@ def offline_realistic(dev) -> dict:
           f" arc ids, costs; {time.perf_counter() - t0:.1f} s of CPU "
           f"checks); kernel launches gather {n['gather']} fetch "
           f"{n['fetch']}")
-    n["max_abs_err"] = hold_launched_shapes(dev, n, "realistic")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "offline realistic")
     return n
 
 
 def offline_eval(dev) -> dict:
     from asr_decoder_tpu_torch.tools import eval as eval_tool
     out, n = counted(lambda: eval_tool.run(quick=True, steps=EVAL_STEPS,
-                                           device=dev), "eval")
+                                           device=dev), "offline eval")
     d = out["detail"]
     check(d["gold_mismatches"] == 0 and d["gold_checked"] > 0,
           f"eval: device search == gold decoder ({d['gold_mismatches']} "
@@ -1467,7 +1505,7 @@ def offline_eval(dev) -> dict:
           f"WER {out['value']}, gold mismatches {d['gold_mismatches']} of "
           f"{d['gold_checked']}, RTF {d['rtf']}; kernel launches gather "
           f"{n['gather']} fetch {n['fetch']}")
-    n["max_abs_err"] = hold_launched_shapes(dev, n, "eval")
+    n["max_abs_err"] = hold_launched_shapes(dev, n, "offline eval")
     return n
 
 
@@ -1540,6 +1578,391 @@ def phase_offline(dev, tlg_proc: subprocess.Popen) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 10: multi-device (one card playing every mesh device) and native
+# ----------------------------------------------------------------------
+
+def same_run(a, b) -> bool:
+    """Every leaf of two (state, init log, frame logs) triples, bit for
+    bit."""
+    return all(torch.equal(*(t.view(torch.int32) if t.dtype == torch.float32
+                             else t for t in (x.cpu(), y.cpu())))
+               for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+def timed(fn) -> tuple:
+    """(``fn()``, its wall seconds to the card's last kernel)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def multi_dp_decode(dev, search, fst) -> dict:
+    """The smoke search (phase 4's loglikes, 16 streams, K = 512) unsharded
+    and dp-sharded over ``DP_MESHES`` meshes of the one card: every leaf
+    bit-identical, ms/frame and kernel launches of each."""
+    from asr_decoder_tpu_torch.parallel.decode import dp_decode
+    from asr_decoder_tpu_torch.parallel.mesh import make_mesh
+    ll = torch.from_numpy(fixed_loglikes(FRAMES)).to(dev)
+    search.decode(ll[:, :4])                              # warm-up
+    (want, sec), n = counted(lambda: timed(lambda: search.decode(ll)),
+                             "dp decode, dp = 1")
+    ref = search.traceback(*want, fst)
+    runs = {1: dict(ms_per_frame=1e3 * sec / FRAMES, n=n)}
+    for dp in DP_MESHES:
+        mesh = make_mesh([dev] * dp)
+        dp_decode(mesh, search, ll[:, :4])                # warm-up
+        (got, sec), n = counted(lambda: timed(
+            lambda: dp_decode(mesh, search, ll)), f"dp decode, dp = {dp}")
+        check(same_run(got, want) and search.traceback(*got, fst) == ref,
+              f"dp = {dp} decode: logs, words and costs bit-identical to "
+              f"the unsharded card decode")
+        runs[dp] = dict(ms_per_frame=1e3 * sec / FRAMES, n=n)
+    print(f"multi dp decode: {BATCH} streams x {FRAMES} frames, K = "
+          f"{search.beam_width}, {search.dev.num_states} states; dp = "
+          f"{' and '.join(map(str, DP_MESHES))} on one card: logs, words and "
+          f"costs bit-identical to the unsharded decode; " + "; ".join(
+              f"dp = {dp}: {r['ms_per_frame']:.3f} ms/frame, launches "
+              f"gather {r['n']['gather']} fetch {r['n']['fetch']}"
+              for dp, r in runs.items()))
+    return runs
+
+
+def am_rows_err(dev, info) -> dict:
+    """The AM (``info.score``) over one chunk of ``UTTS // 2`` channels
+    alone against the same rows of the ``UTTS``-row call, on the card and
+    on the CPU: max abs err of each (0 where the rows' products do not
+    depend on the batch)."""
+    from asr_decoder_tpu_torch.parallel.mesh import replicate_layers
+    C, n = info.config.chunk_frames, UTTS // 2
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (UTTS, C, info.am_layers[0].input_dim)).astype(np.float32))
+    valid = np.full(UTTS, C, np.int32)
+    out = {}
+    for name, d, layers in (("card", dev, info.am_layers),
+                            ("cpu", torch.device("cpu"),
+                             replicate_layers(info.am_layers, "cpu"))):
+        with torch.inference_mode():
+            def score(b):
+                return info.score(x[:b].to(d), [l.init_state(b, d)
+                                                for l in layers],
+                                  valid[:b], layers)[0][:n]
+            out[name] = float((score(UTTS) - score(n)).abs().max())
+    return out
+
+
+def multi_dp_arena(dev, info) -> tuple:
+    """Phase 6's ``UTTS`` 4-s streams through the dp = 2 arena and the
+    unsharded one: every best path equal, costs within ``ARENA_COST_RTOL``
+    of their size.  Returns the dp run's kernel launches and the unsharded
+    arena with its channel ids."""
+    from asr_decoder_tpu_torch.parallel.mesh import make_mesh
+    from asr_decoder_tpu_torch.serving.batcher import BatchedStreamingDecoder
+    n = int(16000 * UTT_SECONDS)
+    waves = serve_waves(UTTS, UTT_SECONDS)
+    am_err = am_rows_err(dev, info)
+
+    def run(mesh):
+        eng = BatchedStreamingDecoder(info, UTTS, mesh=mesh)
+        cids = [eng.acquire() for _ in waves]
+        for off in range(0, n, CHUNK):
+            for cid, w in zip(cids, waves):
+                eng.push(cid, w[off:off + CHUNK].astype(np.float32),
+                         eos=off + CHUNK >= n)
+        eng.drain()
+        return eng, cids, [eng.get_best_path(c) for c in cids]
+
+    def loglikes(eng, cids):
+        return [np.concatenate(eng.snapshot(c).loglikes) for c in cids]
+    (eng, cids, want), sec0 = timed(lambda: run(None))
+    (dp_run, sec), n_dp = counted(lambda: timed(
+        lambda: run(make_mesh([dev] * 2))), "dp arena")
+    got = dp_run[2]
+    # each stream's AM outputs in the two arenas: Σ over frames of the
+    # largest difference bounds what they can move a path's cost
+    dll = [np.abs(a - b).max(axis=1) for a, b in
+           zip(loglikes(*dp_run[:2]), loglikes(eng, cids))]
+    del dp_run
+    dcost = [abs(g["cost"] - w["cost"]) for g, w in zip(got, want)]
+    rel = max(d / abs(w["cost"]) for d, w in zip(dcost, want))
+    mag = [abs(w["cost"]) for w in want]
+    explained = max(d / max(float(x.sum()), 1e-30) for d, x in zip(dcost, dll))
+    print(f"multi dp arena: {UTTS} streams of {UTT_SECONDS:g} s through "
+          f"BatchedStreamingDecoder(mesh=dp 2) on one card: costs within "
+          f"{max(dcost):.3e} abs, {rel:.3e} of |cost| ({min(mag):.1f}-"
+          f"{max(mag):.1f}; tolerance {ARENA_COST_RTOL}); the AM over rows "
+          f"0-{UTTS // 2 - 1} alone against the same rows of the {UTTS}-row "
+          f"call (one chunk from zero state): max abs err card "
+          f"{am_err['card']:.3e}, CPU {am_err['cpu']:.3e}; the two arenas' "
+          f"AM outputs a frame differ by up to {max(x.max() for x in dll):.3e}"
+          f", summed over a stream's frames up to "
+          f"{max(x.sum() for x in dll):.3e}; each stream's cost difference "
+          f"at most {explained:.3f} of its sum; words in utt 0: "
+          f"{len(want[0]['words'])}; {sec:.3f} s against {sec0:.3f} s "
+          f"unsharded; launches gather {n_dp['gather']} fetch "
+          f"{n_dp['fetch']}")
+    check(all(g["words"] == w["words"] and g["arc_ids"] == w["arc_ids"]
+              for g, w in zip(got, want)) and rel <= ARENA_COST_RTOL,
+          f"dp = 2 arena: {UTTS}/{UTTS} best paths (words, arc ids) equal "
+          f"the unsharded arena, costs within {rel} <= {ARENA_COST_RTOL} of "
+          f"|cost|")
+    return n_dp, eng, cids
+
+
+def multi_biglm(dev, search, fst) -> dict:
+    """Phase 7's BigLM search at its depth, unsharded and dp = 2."""
+    from asr_decoder_tpu_torch.parallel.decode import dp_decode
+    from asr_decoder_tpu_torch.parallel.mesh import make_mesh
+    ll = torch.from_numpy(fixed_loglikes(GT_FRAMES, seed=7)).to(dev)
+    mesh = make_mesh([dev] * 2)
+    search.decode(ll[:, :4])                              # warm-up
+    dp_decode(mesh, search, ll[:, :4])
+    want, sec0 = timed(lambda: search.decode(ll))
+    (got, sec), n = counted(
+        lambda: timed(lambda: dp_decode(mesh, search, ll)),
+        "biglm dp decode", need=("gather",))
+    check(same_run(got, want) and search.traceback(*got, fst) ==
+          search.traceback(*want, fst),
+          "biglm dp = 2: logs, LM lanes, overflow flags, words and costs "
+          "bit-identical to the unsharded card decode")
+    ovf = [int(r[2].overflow.sum()) for r in (want, got)]
+    print(f"multi biglm: dp = 2 on one card == unsharded ({BATCH}x"
+          f"{GT_FRAMES} frames): every leaf bit-identical, overflow "
+          f"{ovf[1]} == {ovf[0]} utterance-frames; {1e3 * sec / GT_FRAMES:.3f}"
+          f" against {1e3 * sec0 / GT_FRAMES:.3f} ms/frame; gather launches "
+          f"{n['gather']}")
+    return n
+
+
+def multi_tp_am(dev, search, fst) -> None:
+    """The full-width flagship with its affine rows split over tp = 2 on
+    one card: allclose to the unsharded AM, and the decode over its
+    posteriors gives the same words."""
+    from asr_decoder_tpu_torch.models.flagship import make_flagship
+    from asr_decoder_tpu_torch.models.nnet import am_forward
+    from asr_decoder_tpu_torch.parallel.mesh import (gather_batch, make_mesh,
+                                                     shard_model,
+                                                     sharded_forward)
+    nnet = make_flagship(0, feat_dim=FEAT_DIM, num_pdfs=NUM_PDFS, device=dev)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (BATCH, 3 * FRAMES, FEAT_DIM)).astype(np.float32)).to(dev)
+    model = shard_model(make_mesh([dev] * 2, tp=2), nnet.layers)
+    with torch.inference_mode():
+        am_forward(nnet.layers, x[:, :6], nnet.init_state(BATCH, dev),
+                   skip=SKIP)                             # warm-up
+        sharded_forward(model, x[:, :6], skip=SKIP)
+        y0, sec0 = timed(lambda: am_forward(
+            nnet.layers, x, nnet.init_state(BATCH, dev), skip=SKIP)[0])
+        y1, sec = timed(lambda: gather_batch(
+            sharded_forward(model, x, skip=SKIP)[0], dev))
+    err = (y1 - y0).abs().max().item()
+    check(y1.shape == y0.shape and err <= AM_ATOL,
+          f"tp = 2 AM max abs err {err} <= {AM_ATOL}")
+    w0 = [r["words"] for r in search.traceback(*search.decode(y0), fst)]
+    w1 = [r["words"] for r in search.traceback(*search.decode(y1), fst)]
+    check(w0 == w1, "decode over the tp AM's posteriors: same words")
+    print(f"multi tp am: flagship {nnet.layers[2].w_r_m.shape[1]}/"
+          f"{nnet.layers[2].output_dim}/{len(nnet.layers) - 5} with its "
+          f"affine rows split over tp = 2 on one card: max abs err "
+          f"{err:.3e} against the unsharded AM (tolerance {AM_ATOL}); "
+          f"{sec:.3f} s against {sec0:.3f} s; decode words equal for "
+          f"{len(w0)} utterances")
+
+
+def start_nccl_selftest() -> tuple:
+    """The one-rank NCCL selftest (``run_distributed_selftest(1,
+    backend="nccl")``: a worker process that initialises NCCL on the card)
+    in a thread, so its process start overlaps the phase's other work.
+    Returns (thread, result dict)."""
+    import threading
+    from asr_decoder_tpu_torch.parallel.multihost import \
+        run_distributed_selftest
+    out = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            out["ok"] = run_distributed_selftest(
+                1, timeout=NCCL_TIMEOUT_S, backend="nccl")[0]
+        except Exception as e:                     # reported by multi_hosts
+            out["ok"] = repr(e)
+        out["s"] = time.perf_counter() - t0
+    thread = threading.Thread(target=run)
+    thread.start()
+    return thread, out
+
+
+def multi_hosts(dev, info, nccl) -> None:
+    """Two simulated hosts, each an arena over its own dp = 2 mesh of the
+    card, against per-stream sessions; host 0 dropped mid-run.  Then the
+    one-rank NCCL selftest started by ``start_nccl_selftest``."""
+    from asr_decoder_tpu_torch.parallel.multihost import \
+        simulated_host_arenas
+    from asr_decoder_tpu_torch.serving.session import OnlineDecoderSession
+    rng = np.random.default_rng(31)
+    waves = [(rng.standard_normal(int(16000 * GT_SECONDS)) * 4000)
+             .astype(np.float32) for _ in range(2)]
+    want = []
+    for w in waves:
+        s = OnlineDecoderSession(info)
+        s.process_data(w, eos=True)
+        want.append(s.get_best_path()["words"])
+    arenas = simulated_host_arenas(lambda: info, 2, num_channels=4,
+                                   devices=[dev] * 4)
+    cids = [a.acquire() for a in arenas]
+    for arena, cid, w in zip(arenas, cids, waves):
+        arena.push(cid, w, eos=True)
+    arenas[0].drain()
+    got0 = arenas[0].get_best_path(cids[0])["words"]
+    # a second stream on host 0, then "host 0 dies": host 1 drains alone
+    arenas[0].push(arenas[0].acquire(), waves[0], eos=True)
+    arenas[0] = None
+    arenas[1].drain()
+    got1 = arenas[1].get_best_path(cids[1])["words"]
+    check([got0, got1] == want, "per-host arenas == per-stream sessions, "
+                                "host 1 unaffected by host 0's loss")
+    thread, out = nccl
+    thread.join()
+    check(out["ok"].startswith("MH_OK"), f"NCCL selftest: {out['ok']}")
+    print(f"multi hosts: 2 simulated hosts x dp 2 on one card == per-stream "
+          f"sessions, host 1 unaffected when host 0 is dropped; NCCL "
+          f"selftest with 1 rank in {out['s']:.1f} s (a process of its own, "
+          f"overlapping this phase): {out['ok']}; NCCL refuses two ranks on "
+          f"one GPU, so more ranks wait for a machine with more cards")
+
+
+def multi_nbest(info, eng, cids) -> None:
+    """The native n-best against the Python one on the determinized
+    lattices of ``NATIVE_UTTS`` of phase 6's utterances (decoded by the
+    unsharded arena ``eng``): equal results, and the ms of a reply both
+    ways as the session and the batcher reach it (``nbest_from_lattice``,
+    which serializes the lattice for the native library) and as the post
+    service does (on the bytes it makes for its reply in any case)."""
+    from asr_decoder_tpu_torch.fst import native_nbest
+    from asr_decoder_tpu_torch.fst.nbest import nshortest
+    from asr_decoder_tpu_torch.serving.session import nbest_from_lattice
+    check(native_nbest.available(), "the native n-best library builds")
+    lib = native_nbest._lib
+    ms = {k: [] for k in ("to_bytes", "post_native", "post_python",
+                          "native", "python")}
+    states = []
+    for cid in cids[:NATIVE_UTTS]:
+        lat = eng.get_lattice_from(eng.snapshot(cid), determinize=True)
+        data, sec = timed(lat.to_bytes)
+        ms["to_bytes"].append(1e3 * sec)
+        got, sec = timed(lambda: native_nbest.nshortest_bytes(data, NBEST_N))
+        ms["post_native"].append(1e3 * sec)
+        paths, sec = timed(lambda: nshortest(lat, NBEST_N))
+        ms["post_python"].append(1e3 * sec)
+        check(len(got) == len(paths) > 0 and all(
+            g["words"] == [a.olabel for a in p.arcs if a.olabel]
+            and g["ilabels"] == list(p.ilabels)
+            and abs(g["graph_cost"] - p.graph_cost) <= 1e-3
+            and abs(g["am_cost"] - p.am_cost) <= 1e-3
+            for g, p in zip(got, paths)),
+            "native n-best == Python n-best (words, ilabels, costs)")
+        native, sec = timed(lambda: nbest_from_lattice(info, lat, NBEST_N))
+        ms["native"].append(1e3 * sec)
+        native_nbest._lib = lambda: None       # the no-toolchain fallback
+        try:
+            python, sec = timed(lambda: nbest_from_lattice(info, lat,
+                                                           NBEST_N))
+        finally:
+            native_nbest._lib = lib
+        ms["python"].append(1e3 * sec)
+        check([r["text"] for r in native] == [r["text"] for r in python],
+              "nbest_from_lattice: native texts == Python texts")
+        states.append(lat.num_states)
+    f = "/".join
+    print(f"multi native: n-best (n = {NBEST_N}) native == Python on "
+          f"{len(states)} determinized lattices of {f(map(str, states))} "
+          f"states, ms per reply each: session/batcher (nbest_from_lattice) "
+          f"native {f(f'{t:.2f}' for t in ms['native'])} (to_bytes alone "
+          f"{f(f'{t:.2f}' for t in ms['to_bytes'])}) against Python "
+          f"{f(f'{t:.2f}' for t in ms['python'])}; post service (bytes "
+          f"made for its reply) native "
+          f"{f(f'{t:.2f}' for t in ms['post_native'])} against Python "
+          f"{f(f'{t:.2f}' for t in ms['post_python'])}")
+
+
+def multi_native_client(info) -> None:
+    """The C++ client against the Python client through the port's server
+    on ``NATIVE_UTTS`` of phase 6's waves: texts and word alignments
+    equal."""
+    from asr_decoder_tpu_torch.serving.client import AsyncAsrClient
+    from asr_decoder_tpu_torch.serving.native_client import NativeAsrClient
+    from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
+    waves = serve_waves(UTTS, UTT_SECONDS)[:NATIVE_UTTS]
+
+    async def serve():
+        server = AsrServer(info, SocketConfig(port=0, num_channels=4))
+        host, port = await server.start()
+        try:
+            def native_work():
+                out = []
+                for w in waves:
+                    with NativeAsrClient(host, port) as c:
+                        for off in range(0, len(w), CHUNK):
+                            text, _ = c.send_chunk(
+                                w[off:off + CHUNK], ali_info=True,
+                                eos=off + CHUNK >= len(w))
+                        out.append((text, c.last_align))
+                return out
+            native = await asyncio.to_thread(native_work)
+            python = []
+            for w in waves:
+                c = AsyncAsrClient(host, port)
+                await c.connect()
+                try:
+                    python.append(await c.decode_utterance(
+                        w, chunk_samples=CHUNK, ali_info=True))
+                finally:
+                    await c.close()
+            return native, python
+        finally:
+            await server.stop()
+
+    native, python = asyncio.run(serve())
+    check(all(t == r.one_best() and [a[0] for a in al] ==
+              [a[0] for a in r.align] and np.allclose(
+                  [a[1:] for a in al], [a[1:] for a in r.align], atol=1e-3)
+              for (t, al), r in zip(native, python)),
+          "native client texts and word alignments == the Python client's")
+    print(f"multi native client: NativeAsrClient texts and alignments == "
+          f"the Python client's for {len(waves)} utterances (words in utt 0: "
+          f"{len(native[0][0].split())})")
+
+
+def phase_multi(dev, fst, serve_info, biglm_search) -> dict:
+    """Phase 10; returns the search kernels' launches of its counted runs
+    and their max abs err against the plain versions at every shape those
+    runs launched them at."""
+    from asr_decoder_tpu_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    runs = multi_dp_decode(dev, serve_info.search, fst)
+    counts = [runs[dp]["n"] for dp in DP_MESHES]
+    n_arena, eng, cids = multi_dp_arena(dev, serve_info)
+    counts.append(n_arena)
+    counts.append(multi_biglm(dev, biglm_search, fst))
+    multi_tp_am(dev, serve_info.search, fst)
+    multi_nbest(serve_info, eng, cids)
+    del eng
+    # the timed runs are done: the NCCL worker may start beside the rest
+    nccl = start_nccl_selftest()
+    shapes = ({s for c in counts for s in c["shapes"][0]},
+              {s for c in counts for s in c["shapes"][1]})
+    err = hold_launched_shapes(dev, {"shapes": shapes}, "multi dp runs")
+    multi_native_client(serve_info)
+    multi_hosts(dev, serve_info, nccl)
+    out = dryrun_multichip(4, [dev] * 4)
+    check(out["mesh"] == {"dp": 2, "tp": 2}, f"dry run mesh {out['mesh']}")
+    print(f"phase multi: {time.perf_counter() - t0:.1f} s")
+    return dict(gather=sum(c["gather"] for c in counts),
+                fetch=sum(c["fetch"] for c in counts), max_abs_err=err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1589,7 +2012,7 @@ def run_phases(dev, name: str, t0: float, tlg_proc) -> int:
                          device=dev)
     phase_am(dev, nnet)
     print(f"phase am done at {time.perf_counter() - t0:.1f} s")
-    launches = phase_serve(dev, nnet, fst)
+    launches, serve_info = phase_serve(dev, nnet, fst)
     print(f"phase serve done at {time.perf_counter() - t0:.1f} s")
     graph_types = phase_graph_types(dev, nnet, fst, i2p)
     print(f"phase graph types done at {time.perf_counter() - t0:.1f} s")
@@ -1598,27 +2021,33 @@ def run_phases(dev, name: str, t0: float, tlg_proc) -> int:
     print(f"phase vad done at {time.perf_counter() - t0:.1f} s")
     offline = phase_offline(dev, tlg_proc)
     print(f"phase offline done at {time.perf_counter() - t0:.1f} s")
+    multi = phase_multi(dev, fst, serve_info,
+                        graph_types.pop("biglm_search"))
+    print(f"phase multi done at {time.perf_counter() - t0:.1f} s")
     check_imports()
     # the search kernels' main-path launches: the serve run, the graph
     # types' card searches and serve runs, the VAD-driven serve run, the
-    # three offline points and the eval run (each counted from 0 just
-    # before)
+    # three offline points, the eval run, and phase 10's dp decodes, dp
+    # arena and BigLM dp decode (each counted from 0 just before)
     kernels["gather"]["max_abs_err"] = max(
         kernels["gather"]["max_abs_err"], graph_types["max_abs_err"],
-        offline["max_abs_err"])
+        offline["max_abs_err"], multi["max_abs_err"])
     kernels["fetch"]["max_abs_err"] = max(kernels["fetch"]["max_abs_err"],
-                                          offline["max_abs_err"])
+                                          offline["max_abs_err"],
+                                          multi["max_abs_err"])
     record = {"kernels": [
         dict(name="batched_table_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/gather.cu",
              replaces="asr_decoder_tpu/ops/gather.py:43",
              launches=(launches["gather"] + graph_types["gather"]
-                       + vad["gather"] + offline["gather"]),
+                       + vad["gather"] + offline["gather"]
+                       + multi["gather"]),
              **kernels["gather"]),
         dict(name="fetch_records", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="asr_decoder_tpu/ops/fetch.py:65",
-             launches=launches["fetch"] + vad["fetch"] + offline["fetch"],
+             launches=(launches["fetch"] + vad["fetch"] + offline["fetch"]
+                       + multi["fetch"]),
              **kernels["fetch"]),
         dict(name="make_dma_gather", route="cuda",
              source="asr_decoder_tpu_torch/csrc/fetch.cu",

@@ -513,11 +513,18 @@ def case_compose_lmscore(tmp_path):
 
 def case_post_service(tmp_path, monkeypatch):
     """Request and response bytes, and ``PostServer._process`` in add and
-    replace mode on random lattices (and on garbage): equal responses.
-    The original's native n-shortest is turned off: the copy keeps the
-    original's Python n-shortest only."""
-    from asr_decoder_tpu.fst import native_nbest
-    monkeypatch.setattr(native_nbest, "_lib", lambda: None)
+    replace mode on random lattices (and on garbage): equal responses,
+    with both packages' native n-shortest (where ``g++`` builds it), then
+    with both turned off (the Python n-shortest)."""
+    from asr_decoder_tpu.fst import native_nbest as jnat
+    from asr_decoder_tpu_torch.fst import native_nbest as pnat
+    _post_service_round()
+    for mod in (jnat, pnat):
+        monkeypatch.setattr(mod, "_lib", lambda: None)
+    _post_service_round()
+
+
+def _post_service_round():
     t1, t2 = _lms(JSA)
     jr = JPOST.ConstLmRescorer(JARPA.parse_arpa(t2), JARPA.parse_arpa(t1))
     pr = PPOST.ConstLmRescorer(PARPA.parse_arpa(t2), PARPA.parse_arpa(t1))
