@@ -86,7 +86,9 @@ asr_decoder_tpu_torch <tool>``), ``frontend/audio.py``,
 ``align/{word_align,phone_to_word}.py``, ``eval/synth_task.py``,
 ``models/transition.py``.
 
-Nothing of ``asr_decoder_tpu`` is left to port (ROADMAP §1).  The
+Nothing of ``asr_decoder_tpu`` is left to port (ROADMAP §1);
+``tests/test_torch_api_coverage.py`` holds every public name of the JAX
+package to its counterpart here, or to a stated reason.  The
 multi-device paths are tested on the CPU (a mesh of ``["cpu"] * n``, gloo
 ranks) and run on one card as a mesh whose entries repeat ``cuda:0``.
 """

@@ -70,19 +70,23 @@ def init_multihost(coordinator_address: str | None = None,
     One process with no coordinator (the per-host-arena default) is a
     no-op; more processes need the coordinator's address.  Otherwise
     ``init_process_group`` connects this process to the coordinator
-    (``host:port`` or ``tcp://host:port``) with an explicit
-    ``backend`` (``nccl`` for cards, ``gloo`` for the CPU; default
-    ``nccl`` when a card is present) and an explicit ``timeout`` in
-    seconds, so that a lost rank fails the collectives instead of hanging
-    them."""
+    (``host:port`` or ``tcp://host:port``) with ``backend`` (``nccl``, the
+    default, for cards; ``gloo`` for the CPU, only when the caller passes
+    it: with no visible card ``nccl`` raises ``RuntimeError`` before any
+    process group is made, so a job whose card is missing never carries on
+    over CPU collectives) and an explicit ``timeout`` in seconds, so that a
+    lost rank fails the collectives instead of hanging them."""
     if coordinator_address is None:
         if num_processes == 1:
             return MultihostContext(1, 0, None)
         raise ValueError(f"{num_processes} processes need a coordinator "
                          "address")
     import torch.distributed as dist
-    if backend is None:
-        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    backend = backend or "nccl"
+    if backend == "nccl" and not torch.cuda.is_available():
+        raise RuntimeError("init_multihost: backend 'nccl' needs a visible "
+                           "CUDA device and none is; on the CPU pass "
+                           "backend=\"gloo\"")
     addr = coordinator_address
     if "://" not in addr:
         addr = f"tcp://{addr}"

@@ -56,7 +56,8 @@ from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    merge_logs,
                                                    nbest_from_lattice,
                                                    to_host,
-                                                   trailing_silence)
+                                                   trailing_silence,
+                                                   word_alignment)
 
 
 def _channel_rows(a: np.ndarray, cid: int, frames: int | None = None
@@ -347,8 +348,10 @@ class BatchedStreamingDecoder:
     #
     # ``snapshot(cid)`` runs on the device thread (it flushes and copies the
     # channel's beam row to the host); the ``*_from(snap)`` builders —
-    # traceback, lattice, n-best — read only that host copy and may run on
-    # other threads while the arena keeps stepping.
+    # traceback, word alignment, lattice, n-best — read only that host copy
+    # and may run on other threads while the arena keeps stepping.  The
+    # ``cid`` forms take the snapshot first, so they run on the device
+    # thread.
     def snapshot(self, cid: int) -> ChannelSnapshot:
         self._flush_logs()
         ch = self._channels[cid]
@@ -371,6 +374,19 @@ class BatchedStreamingDecoder:
         res = self.get_best_path(cid)
         return " ".join(self.info.words.words(res.get("words", [])))
 
+    def get_word_alignment_from(self, snap: ChannelSnapshot,
+                                frame_offset: int = 0
+                                ) -> list[tuple[str, float, float]]:
+        """AlignTime payload [(word, begin_s, end_s)] of the channel's best
+        path, ``frame_offset`` decoded frames in; raises ``RuntimeError``
+        for a clg graph, which has no arc-labelled ``fst``."""
+        return word_alignment(self.info, self.get_best_path_from(snap),
+                              frame_offset)
+
+    def get_word_alignment(self, cid: int, frame_offset: int = 0
+                           ) -> list[tuple[str, float, float]]:
+        return self.get_word_alignment_from(self.snapshot(cid), frame_offset)
+
     def get_lattice_from(self, snap: ChannelSnapshot,
                          determinize: bool = True):
         logs = merge_logs(snap.chunk_logs)
@@ -379,6 +395,11 @@ class BatchedStreamingDecoder:
         lls = np.concatenate(snap.loglikes, axis=0)[None]
         return lattice_from_logs(self.info, self._init_log, logs, lls,
                                  determinize)
+
+    def get_lattice(self, cid: int, determinize: bool = True):
+        """The channel's lattice (determinized unless asked not to), or
+        None for a channel with no frames."""
+        return self.get_lattice_from(self.snapshot(cid), determinize)
 
     def get_nbest_from(self, snap: ChannelSnapshot, n: int) -> list[dict]:
         return nbest_from_lattice(

@@ -20,9 +20,10 @@ sources in this checkout, then:
      kernels (``make_dma_gather``, ``make_dma``, ``make_dma_dyn``) bit-
      exactly against their plain version at the JAX tools' shapes (2M-row
      tables, 131,072 indices, 128-512 lanes, live counts 131,072 / 32,768
-     / 8,192), times both, drives each once through its tool's chained
-     calls, counting the kernel's launches there, and runs each tool's
-     bench;
+     / 8,192), times both (``make_dma`` at 512 lanes in ``ROW_PAIRS``
+     alternating pairs with its library call), drives each once through
+     its tool's chained calls, counting the kernel's launches there, and
+     runs each tool's bench;
   4. decodes fixed loglikes through the full-size search (200k-state graph,
      K=512, B=16) on the card and on the CPU — the v3 engine, then the v2
      engine in closure and in sweeps ε mode: logs, words and costs must be
@@ -34,7 +35,10 @@ sources in this checkout, then:
   6. serves 16 concurrent 4-second utterances through the port's
      ``AsrServer`` built by its CLI loader, and checks every final reply
      against an in-process ``BatchedStreamingDecoder`` on the same waves,
-     and that both kernels launched during the serve run;
+     and that both kernels launched during the serve run; then that
+     arena's results: every channel's word alignment and lattice, and
+     ``SESSION_UTTS`` of the waves decoded in lone card sessions, whose
+     alignments and 3-best texts the arena's channels must equal;
   7. graph types: the ``clg`` search (a 200k-state CLG layer over 2000
      three-state HMMs) and the ``biglm-hclg`` search (the 200k-state graph
      with the difference of a 20k-bigram and a 200k-bigram + 100k-trigram
@@ -145,6 +149,7 @@ SEARCH = dict(beam=14.0, beam_width=512, arc_lanes=ARC_LANES, max_active=512,
 BATCH, FRAMES = 16, 133            # 4 s of audio after 3x subsampling
 V2_FRAMES = 67                     # the two v2 runs of phase 4: 2 s
 UTTS, UTT_SECONDS, CHUNK = 16, 4.0, 3200
+SESSION_UTTS = 4                   # served waves re-decoded in lone sessions
 AM_ATOL = 1e-3                     # log-likelihood units
 # phase 2: the gather at the main path's shapes — (B, V, N, tables P,
 # label): the v3 relax tables at B=32, the acoustic lookup at the headline
@@ -177,6 +182,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published peak
 V3_GATHERS_PER_FRAME = 7           # phase 4: emit 5 + closure 2
 # the tools/perf row-gather microbenches (JAX tools' shapes)
 ROW_S, ROW_NIDX, ROW_WIDTHS = 2_000_000, 131_072, (128, 256, 512)
+ROW_PAIRS = 10                     # make_dma at 512 lanes: kernel/library pairs
 ROW_LIVE = (131_072, 32_768, 8_192)
 # phase 7, the graph types: the CLG layer and its HMMs, the BigLM's LMs
 CLG_HMMS = 2000
@@ -418,6 +424,24 @@ def phase_kernels(dev) -> dict:
 # phase 3: the tools/perf row-gather kernels against their plain version
 # ----------------------------------------------------------------------
 
+def paired_ms(kernel, library, name: str) -> tuple[float, float]:
+    """Medians of ``ROW_PAIRS`` alternating device timings of ``kernel``
+    and ``library`` (kernel first in even pairs, library first in odd
+    ones), so that both see the same card state; prints each side's
+    median, range and the pairs the kernel wins."""
+    ks, ls = [], []
+    order = ((kernel, ks), (library, ls))
+    for i in range(ROW_PAIRS):
+        for fn, out in order if i % 2 == 0 else order[::-1]:
+            out.append(time_ms(fn, calls=10, replays=5)[0])
+    wins = sum(k < l for k, l in zip(ks, ls))
+    print(f"rows    {name} paired with its library call, {ROW_PAIRS} "
+          f"alternating pairs: kernel {np.median(ks):.4f} ms [{min(ks):.4f}, "
+          f"{max(ks):.4f}], library {np.median(ls):.4f} ms [{min(ls):.4f}, "
+          f"{max(ls):.4f}]; the kernel faster in {wins} of {ROW_PAIRS}")
+    return float(np.median(ks)), float(np.median(ls))
+
+
 def phase_rows(dev) -> dict:
     """The three TPU microbench kernels' counterparts — one CUDA kernel,
     ``ops/fetch.py:row_gather`` — against the plain ``table[idx]``; each
@@ -460,6 +484,10 @@ def phase_rows(dev) -> dict:
             live_idx = idx[:n]
             lms, _ = time_ms(lambda: torch.index_select(table, 0, live_idx),
                              calls=10, replays=5)
+            if (name, W) == ("make_dma", ROW_WIDTHS[-1]):
+                ms, lms = paired_ms(
+                    lambda: fn(table, idx),
+                    lambda: torch.index_select(table, 0, live_idx), name)
             # the count, the live indices, each distinct row read once and
             # each live output row written once
             rows_read = torch.unique(live_idx).numel()
@@ -664,7 +692,8 @@ def serve_check(info, utts: int, label: str,
     ``AsrServer`` over
     ``info``; every final reply must equal an in-process
     ``BatchedStreamingDecoder`` on the same waves and chunks.  Returns the
-    kernel launches of the serve run."""
+    kernel launches of the serve run, that arena, its channels and the
+    waves."""
     from asr_decoder_tpu_torch.serving.client import AsyncAsrClient
     from asr_decoder_tpu_torch.serving.protocol import EndFlag
     from asr_decoder_tpu_torch.ops import fetch, gather
@@ -720,7 +749,61 @@ def serve_check(info, utts: int, label: str,
           f"{answered}/{utts} answered, {same}/{utts} equal the batcher; "
           f"warn set on {sum(r.warn for r in replies)}; kernel launches "
           f"{launches}; words in utt 0: {len(want[0])}")
-    return launches
+    return launches, eng, cids, waves
+
+
+def serve_results(info, eng, cids, waves) -> None:
+    """The arena's per-channel results on the card, on the thread that
+    stepped it: every channel's word alignment (its words those of the
+    best path) and lattice; then ``SESSION_UTTS`` of the waves decoded in
+    lone card ``OnlineDecoderSession``s in the same chunks, each channel's
+    alignment equal to its session's and its lattice's 3-best texts equal
+    to the session's."""
+    from asr_decoder_tpu_torch.serving.session import (OnlineDecoderSession,
+                                                       nbest_from_lattice)
+    t_all = time.perf_counter()
+    aligns, lats, ms = [], [], []
+    for cid in cids:
+        align = eng.get_word_alignment(cid)
+        check([w for w, _, _ in align]
+              == eng.get_best_path_txt(cid).split(),
+              f"serve results: channel {cid}'s alignment has its best "
+              f"path's words")
+        t0 = time.perf_counter()
+        lat = eng.get_lattice(cid)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        check(lat is not None and lat.num_states > 0,
+              f"serve results: channel {cid} has a lattice")
+        aligns.append(align)
+        lats.append(lat)
+    n = len(waves[0])
+    same_align = same_nbest = 0
+    for i in range(SESSION_UTTS):
+        s = OnlineDecoderSession(info)
+        for off in range(0, n, CHUNK):
+            s.process_data(waves[i][off:off + CHUNK].astype(np.float32),
+                           eos=off + CHUNK >= n)
+        frames = eng.snapshot(cids[i]).frames_decoded
+        check(s.num_frames_decoded == frames,
+              f"serve results: session {i} decoded {s.num_frames_decoded} "
+              f"frames, its channel {frames}")
+        same_align += aligns[i] == s.get_word_alignment()
+        same_nbest += ([r["text"] for r in nbest_from_lattice(info, lats[i],
+                                                               3)]
+                       == s.get_nbest_txt(3))
+    check(same_align == SESSION_UTTS,
+          f"serve results: {same_align} of {SESSION_UTTS} alignments equal "
+          f"their card session's")
+    check(same_nbest == SESSION_UTTS,
+          f"serve results: {same_nbest} of {SESSION_UTTS} lattice 3-best "
+          f"texts equal their card session's")
+    print(f"serve results: {len(cids)}/{len(cids)} channels aligned "
+          f"({sum(map(len, aligns))} words), {same_align}/{SESSION_UTTS} "
+          f"alignments equal their card session, {same_nbest}/"
+          f"{SESSION_UTTS} lattice n-best equal; get_lattice ms per channel "
+          f"{np.median(ms):.1f} [{min(ms):.1f}, {max(ms):.1f}] "
+          f"({int(np.median([l.num_states for l in lats]))} states median); "
+          f"{time.perf_counter() - t_all:.1f} s in all")
 
 
 def make_words(num_words: int):
@@ -751,9 +834,10 @@ def phase_serve(dev, nnet, fst) -> dict:
             OnlineDecoderConfig(ctc_blank_shift=True),
             FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP),
             {"trans-model": ""}, device=dev)
-    launches = serve_check(info, UTTS, "serve")
+    launches, eng, cids, waves = serve_check(info, UTTS, "serve")
     check(launches["fetch"] > 0, "fetch kernel launched during the serve "
                                  "run")
+    serve_results(info, eng, cids, waves)
     return launches, info
 
 
@@ -891,7 +975,7 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     total["gather"] += rec["launches"]["gather"]
     total["clg"] = rec
     total["gather"] += serve_check(info, GT_UTTS, "serve clg",
-                                   GT_SECONDS)["gather"]
+                                   GT_SECONDS)[0]["gather"]
     del info
 
     # --- biglm-hclg: an info made in process with its DeviceDiffLm ------
@@ -937,7 +1021,7 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
     total["gather"] += rec["launches"]["gather"]
     total["biglm"] = rec
     total["gather"] += serve_check(info, GT_UTTS, "serve biglm",
-                                   GT_SECONDS)["gather"]
+                                   GT_SECONDS)[0]["gather"]
     total["biglm_search"] = s
     return total
 
