@@ -15,14 +15,20 @@
 //     rows i < nlive only, nlive a scalar-prefetch operand (B = 1,
 //     live = [nlive] on the device, so no host sync).
 //
-// What bounds it on Hopper: random row reads, one 128-2048 byte row per
-//   live token; the bound is the bytes (each live row read once and written
-//   once, plus the states).  At the search's 200k-state graph (32 lanes x
-//   4 B = 25.6 MB) the table fits in the 50 MB L2; at the 2M-2.5M state
-//   tables of the production graph and the microbenches (0.25-4.1 GB) every
-//   row is an HBM access, and the kernel is bound by HBM latency x bytes in
-//   flight: feeding 3.35 TB/s at ~700 ns takes ~18 KB in flight an SM
-//   (Little's law).
+// What bounds it on Hopper: bytes — each live row read once and written
+//   once, plus the states.  Only the search's 200k-state graph at 32 lanes
+//   (25.6 MB) sits in the 50 MB L2.  Everything else is an HBM read a row:
+//   the 2.5M-state production tables (320 MB at 32 lanes, 640 MB at 64,
+//   1.28 GB at 128) and the microbenches' 2M-row tables (1, 2 and 4 GB at
+//   128, 256 and 512 lanes), at 512 B, 1 KB and 2 KB a row.  Reads are
+//   random and writes sequential, so the card's ceiling is that of a copy
+//   with one side scattered, not the 3.35 TB/s peak.  From HBM a contiguous
+//   device-to-device copy of the same bytes reaches 86.8-90.0% of that
+//   peak at 64-256 MB a side, 76.4% at 16 MB and 52.5% at 4 MB (H100
+//   80GB HBM3 at 700 W, chip_smoke.py phase 3, which prints it beside each
+//   microbench row).  A timing loop must cycle several index sets: with
+//   one, a live count of 32,768 keeps its 16 MB of rows and 16 MB of
+//   output in the L2, and the copy beats the HBM bound.
 //
 // Design: the TPU page layout is dropped.  Its [S_pages, 128] pages and the
 //   lane-group select exist only because TPU HBM rows are 128-lane tiles;
@@ -44,10 +50,53 @@
 //     output run) was built and measured no faster at the search's large
 //     shapes and 1.6x slower at its small ones (one TMA issue a 128-byte
 //     row, then a serial store).
-//   * Wide rows (128, 256, 512 lanes, the row-gather microbenches): one warp
-//     a token, the row read as 32 x N coalesced int4 words (N = 1, 2, 4,
-//     all loads issued before the first store), which reaches 83-87% of the
-//     HBM rate there.
+//   * Wide rows (128, 256 and 512 lanes: the search's 128-lane record and
+//     the row-gather microbenches): one warp a row, read as 32 x N
+//     coalesced int4 words (N = L / 128).  A warp owns 8 consecutive
+//     tokens: their states come as two int4 loads, and all 8 N row loads
+//     are issued before the first store — 128 to 512 bytes in flight a
+//     thread.  A block of 8 warps covers 64 tokens of row b, so a dead
+//     stretch costs one live[b] read a 64 tokens: at make_dma_dyn's live
+//     32,768 of 131,072, 1,536 of 2,048 blocks read it and exit (the
+//     warp-per-token grid this replaces started 12,288 such blocks of
+//     16,384).  At 128 lanes the loads stream past the L1
+//     (ld.global.nc.L1::no_allocate) and the stores are evict-first
+//     (st.global.cs); at 256 and 512 lanes both are plain.
+//   Built, measured against this design in alternating turns on an H100
+//   80GB HBM3 at 700 W (tools/perf/bench_kernels_ab.py, medians of 6
+//   turns a side), and not kept; the sources of the first two were not
+//   kept either, and their runs reused one index set, so their
+//   dynamic-count rows were read from the L2:
+//   * a persistent grid (as many blocks as the SMs hold, from
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor, each block walking
+//     only the live units grid-stride over (b, k), 4 tokens a warp): with
+//     every row live 49.59 / 97.18 / 189.94 us at 128 / 256 / 512 lanes
+//     against 48.28 / 94.01 / 184.12 here, 2.7-3.4% slower; 13.76 and
+//     3.97 us at make_dma_dyn's live 32,768 and 8,192 against 12.53 and
+//     3.79.  A static split ends when the slowest SM ends; many short
+//     blocks let the block scheduler balance the SMs, and at 64 tokens a
+//     block the dead ones it saves cost little;
+//   * at 256 and 512 lanes, a Hopper bulk-copy ring in that persistent
+//     grid (a block of one warp, 4 stages in dynamic shared memory; one
+//     lane a row issues a cp.async.bulk into the stage under its mbarrier,
+//     lane 0 writes the stage's consecutive output rows with one bulk
+//     store, then commit_group and wait_group.read before the stage is
+//     refilled): 101.72 / 195.72 us with 32 KB stages against 93.98 /
+//     184.01 here, 98.33 / 190.20 with 16 KB stages against 93.97 /
+//     184.08 (3.3-8.2% slower).  The rows cost no registers, but the
+//     32 KB bulk stores were no faster than coalesced 512-byte warp
+//     stores, and a ring per block kept fewer independent row reads in
+//     flight than eight warps of 8 tokens;
+//   * the streaming hints at every width, rows from HBM (16 index sets
+//     cycled): 94.93 / 185.95 us at 256 / 512 lanes against 94.21 /
+//     184.06 with plain loads and stores;
+//   * plain loads and stores at 128 lanes too (on another card of the same
+//     kind): every row live, 48.97 us against 49.29 with the hints, and
+//     the search's [2.5M,128] at B=256 K=512 and B=32 K=4096 49.14 and
+//     48.91 against 49.71 and 49.61 (0.7-1.4% faster); but B=16 K=512
+//     5.61 against 5.27, and make_dma_dyn's live 32,768 and 8,192 14.14
+//     and 5.69 against 13.63 and 5.32 (4-7% slower).  The hints stay at
+//     128 lanes, where the search's live counts are mostly partial.
 //   The TPU's DMA pipeline knobs (nsem semaphores in flight, block_rows,
 //   loop unroll) have no counterpart: the threads resident on each SM keep
 //   the row reads in flight.
@@ -59,6 +108,12 @@
 #include <stdint.h>
 
 namespace {
+
+// Every row of state[B, K] starts on a 16-byte boundary, so a thread may
+// read 4 consecutive tokens' states as one int4.
+bool states_vectorizable(const void* state, int K) {
+  return K % 4 == 0 && (reinterpret_cast<uintptr_t>(state) & 15) == 0;
+}
 
 // ---- narrow records: 16-byte vectors, 4 tokens a thread ------------------
 
@@ -109,8 +164,7 @@ template <int L>
 int launch_narrow(const void* table, const void* state, const void* live,
                   void* out, int S, int B, int K, cudaStream_t stream) {
   constexpr int kTokens = kNarrowThreads / (L / 4) * kTokensPerThread;
-  const bool vec_state =
-      K % 4 == 0 && (reinterpret_cast<uintptr_t>(state) & 15) == 0;
+  const bool vec_state = states_vectorizable(state, K);
   dim3 grid((K + kTokens - 1) / kTokens, B);
   fetch_narrow_kernel<L><<<grid, kNarrowThreads, 0, stream>>>(
       static_cast<const int4*>(table), static_cast<const int32_t*>(state),
@@ -119,40 +173,100 @@ int launch_narrow(const void* table, const void* state, const void* live,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- wide rows: one warp a token ---------------------------------------
 
-constexpr int kWarps = 8;  // tokens per block
+// ---- wide rows: a warp moves 8 consecutive tokens' rows at a time -------
 
-// Vec: int4; a row is 32 * N Vec words, N per thread of the warp.
-template <typename Vec, int N>
-__global__ void fetch_kernel(const Vec* __restrict__ table,
-                             const int32_t* __restrict__ state,
-                             const int32_t* __restrict__ live,
-                             Vec* __restrict__ out, int S, int K) {
-  const int b = blockIdx.y;
-  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  const int n = min(__ldg(live + b), K);
-  if (k >= n) return;
-  const int64_t tok = static_cast<int64_t>(b) * K + k;
-  int s = __ldg(state + tok);
-  s = min(max(s, 0), S - 1);
-  const Vec* src = table + static_cast<int64_t>(s) * (32 * N) + lane;
-  Vec* dst = out + tok * (32 * N) + lane;
-  Vec v[N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) v[j] = __ldg(src + 32 * j);
-#pragma unroll
-  for (int j = 0; j < N; ++j) dst[32 * j] = v[j];
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideTokens = 8;                     // tokens a warp
+// Streaming loads (ld.global.nc.L1::no_allocate) and evict-first stores
+// at 128 lanes, where they are 4-7% faster at partial and small live
+// counts (and 0.7-1.4% slower with every row live); plain loads and
+// stores at 256 and 512 lanes, where the microbenches' full-live rows
+// read 0.8-1.0% faster without them.
+template <int N>
+constexpr bool kStreamingHints = N == 1;
+
+__device__ __forceinline__ int4 load_streaming(const int4* p) {
+  int4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
 }
 
-template <typename Vec, int N>
-int launch(const void* table, const void* state, const void* live, void* out,
-           int S, int B, int K, cudaStream_t stream) {
-  dim3 grid((K + kWarps - 1) / kWarps, B);
-  fetch_kernel<Vec, N><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const Vec*>(table), static_cast<const int32_t*>(state),
-      static_cast<const int32_t*>(live), static_cast<Vec*>(out), S, K);
+// L = 128 N lanes: a warp reads a row as 32 x N coalesced int4 words.  A
+// warp owns kWideTokens consecutive tokens of row b: their states come as
+// int4 loads where aligned, and all its row loads are issued before the
+// first store; a block covers kWideWarps * kWideTokens tokens of row b.
+template <int N>
+__global__ void __launch_bounds__(kWideThreads)
+fetch_wide_kernel(const int4* __restrict__ table,
+                  const int32_t* __restrict__ state,
+                  const int32_t* __restrict__ live, int4* __restrict__ out,
+                  int S, int K, bool vec_state) {
+  constexpr int T = kWideTokens;
+  static_assert(T % 4 == 0, "states are read as int4");
+  constexpr int kRow = 32 * N;                      // int4 words a row
+  const int b = blockIdx.y;
+  const int n = min(__ldg(live + b), K);
+  const int k0 = (blockIdx.x * kWideWarps + (threadIdx.x >> 5)) * T;
+  if (k0 >= n) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t tok = static_cast<int64_t>(b) * K + k0;
+  int s[T];
+  if (vec_state && k0 + T <= n) {
+#pragma unroll
+    for (int q = 0; q < T / 4; ++q) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(state + tok) + q);
+      s[4 * q] = v.x; s[4 * q + 1] = v.y; s[4 * q + 2] = v.z;
+      s[4 * q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int u = 0; u < T; ++u) s[u] = k0 + u < n ? __ldg(state + tok + u) : 0;
+  }
+  int4 v[T][N];
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    if (k0 + u < n) {
+      const int4* src =
+          table + static_cast<int64_t>(min(max(s[u], 0), S - 1)) * kRow +
+          lane;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if constexpr (kStreamingHints<N>)
+          v[u][j] = load_streaming(src + 32 * j);
+        else
+          v[u][j] = __ldg(src + 32 * j);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < T; ++u) {
+    if (k0 + u < n) {
+      int4* dst = out + (tok + u) * kRow + lane;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if constexpr (kStreamingHints<N>)
+          __stcs(dst + 32 * j, v[u][j]);
+        else
+          dst[32 * j] = v[u][j];
+      }
+    }
+  }
+}
+
+template <int N>
+int launch_wide(const void* table, const void* state, const void* live,
+                void* out, int S, int B, int K, cudaStream_t stream) {
+  constexpr int kTokens = kWideWarps * kWideTokens;
+  const bool vec_state = states_vectorizable(state, K);
+  dim3 grid((K + kTokens - 1) / kTokens, B);
+  fetch_wide_kernel<N><<<grid, kWideThreads, 0, stream>>>(
+      static_cast<const int4*>(table), static_cast<const int32_t*>(state),
+      static_cast<const int32_t*>(live), static_cast<int4*>(out), S, K,
+      vec_state);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -170,9 +284,9 @@ extern "C" int fetch_records_i32(const void* table, const void* state,
   switch (L) {
     case 32: return launch_narrow<32>(table, state, live, out, S, B, K, st);
     case 64: return launch_narrow<64>(table, state, live, out, S, B, K, st);
-    case 128: return launch<int4, 1>(table, state, live, out, S, B, K, st);
-    case 256: return launch<int4, 2>(table, state, live, out, S, B, K, st);
-    case 512: return launch<int4, 4>(table, state, live, out, S, B, K, st);
+    case 128: return launch_wide<1>(table, state, live, out, S, B, K, st);
+    case 256: return launch_wide<2>(table, state, live, out, S, B, K, st);
+    case 512: return launch_wide<4>(table, state, live, out, S, B, K, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

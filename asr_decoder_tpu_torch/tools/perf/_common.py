@@ -1,6 +1,7 @@
 """What the ``tools/perf`` microbenches share: the device line, chained-call
-timing, the search's host sync, and the row-gather callables of the three
-TPU microbench kernels."""
+timing, a kernel timed in alternating pairs with its library call, the
+search's host sync, and the row-gather callables of the three TPU
+microbench kernels."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import argparse
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 from asr_decoder_tpu_torch.ops.fetch import row_gather
@@ -79,6 +81,33 @@ def time_loop(loop, dev: torch.device, calls: int, replays: int = 1
     end.record()
     end.synchronize()
     return eager, start.elapsed_time(end) / (replays * calls)
+
+
+def paired_ms(kernel, library, pairs: int, timer) -> dict:
+    """``pairs`` alternating timings of ``kernel`` and ``library`` by
+    ``timer(fn) -> ms``, the kernel first in even pairs and the library
+    first in odd ones, so that both see the same card state.  Returns each
+    side's times (``kernel``, ``library``), medians (``kernel_ms``,
+    ``library_ms``) and the pairs the kernel is faster in (``wins``)."""
+    ks, ls = [], []
+    order = ((kernel, ks), (library, ls))
+    for i in range(pairs):
+        for fn, out in order if i % 2 == 0 else order[::-1]:
+            out.append(timer(fn))
+    return dict(kernel=ks, library=ls, kernel_ms=float(np.median(ks)),
+                library_ms=float(np.median(ls)),
+                wins=sum(k < lib for k, lib in zip(ks, ls)))
+
+
+def paired_line(name: str, p: dict) -> str:
+    """One line of a ``paired_ms`` result: each side's median and range,
+    and the pairs the kernel wins."""
+    ks, ls = p["kernel"], p["library"]
+    return (f"{name} paired with its library call, {len(ks)} alternating "
+            f"pairs: kernel {p['kernel_ms']:.4f} ms [{min(ks):.4f}, "
+            f"{max(ks):.4f}], library {p['library_ms']:.4f} ms "
+            f"[{min(ls):.4f}, {max(ls):.4f}]; the kernel faster in "
+            f"{p['wins']} of {len(ks)}")
 
 
 def force(state) -> float:

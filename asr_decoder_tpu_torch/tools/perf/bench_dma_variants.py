@@ -5,7 +5,9 @@ Port of ``tools/perf/bench_dma_variants.py``.  ``make_dma`` and
 ``make_dma_dyn`` are the counterparts of the TPU kernels of the same names:
 the row-gather kernel (``csrc/fetch.cu`` through ``ops/fetch.py:
 row_gather``) over all rows, or over the first ``nlive`` only, with the
-count read by the kernel from device memory.  The TPU knobs
+count read by the kernel from device memory; each is also timed in
+``PAIRS`` alternating pairs with ``torch.index_select`` over the same live
+indices (``_common.paired_ms``).  The TPU knobs
 ``block_rows``, ``nsem`` and ``unroll`` drive its DMA pipeline and have no
 CUDA meaning: the factories take none, and the JAX tool's unroll sweep has
 no counterpart here.  The sorts go through the port's own ordering helpers
@@ -26,12 +28,16 @@ import torch
 from asr_decoder_tpu_torch.ops.beamsearch import _lexsort, _smallest
 from asr_decoder_tpu_torch.tools.perf._common import (device_arg,
                                                       device_line, gather_fn,
-                                                      open_device, time_loop)
+                                                      open_device,
+                                                      paired_line, paired_ms,
+                                                      time_loop)
 from asr_decoder_tpu_torch.tools.perf.bench_row_gather import bench
 
 S = 2_000_000
 NIDX = 131_072
 R = 20
+PAIRS = 10
+SETS = 16        # index sets a paired loop cycles through
 WIDTHS = (128, 256, 512)
 SORTS = [  # (N, keys, note) at B = 32: the JAX tool's shapes
     (32768, 3, "(v2 emit)"),
@@ -54,16 +60,49 @@ def make_dma_dyn(W, nlive):
     return gather_fn(W, nlive)
 
 
-def bench_gather(fn, W, label, SW=None, *, rows=S, nidx=NIDX, repeats=R,
-                 device):
-    """Chained-call timing of ``fn`` over a fresh seeded ``[SW, W]`` table
-    made on the device (``SW`` defaults to ``rows``)."""
-    SW = SW or rows
+def seeded_inputs(W, SW, nidx, device):
+    """The seeded ``[SW, W]`` table and ``nidx`` indices, made on the
+    device."""
     table = torch.randint(0, 127, (SW, W), dtype=torch.int32, device=device,
                           generator=torch.Generator(device).manual_seed(0))
     idx = torch.randint(0, SW, (nidx,), dtype=torch.int32, device=device,
                         generator=torch.Generator(device).manual_seed(1))
+    return table, idx
+
+
+def bench_gather(fn, W, label, SW=None, *, rows=S, nidx=NIDX, repeats=R,
+                 device):
+    """Chained-call timing of ``fn`` over a fresh seeded ``[SW, W]`` table
+    made on the device (``SW`` defaults to ``rows``)."""
+    table, idx = seeded_inputs(W, SW or rows, nidx, device)
     return bench(fn, table, idx, label, repeats)
+
+
+def pair_gather(fn, W, nlive, label, *, rows=S, nidx=NIDX, repeats=R,
+                device):
+    """``fn`` and ``torch.index_select`` over the first ``nlive`` indices,
+    on the seeded ``[rows, W]`` table, in ``PAIRS`` alternating pairs of
+    ``repeats`` calls each (device time of a CUDA-graph replay on a card,
+    the host clock on the CPU); prints one line, returns the result.
+    Successive calls take the next of ``SETS`` index sets, so that at the
+    full size the rows come from HBM, not from the L2."""
+    table, idx = seeded_inputs(W, rows, nidx, device)
+    gen = torch.Generator(device).manual_seed(3)
+    idxs = [idx] + [torch.randint(0, rows, (nidx,), dtype=torch.int32,
+                                  device=device, generator=gen)
+                    for _ in range(SETS - 1)]
+    live_idxs = [i[:nlive] for i in idxs]
+    it = iter(range(1 << 30))
+
+    def timer(f):
+        eager, graph = time_loop(lambda: [f() for _ in range(repeats)],
+                                 device, repeats)
+        return eager if graph is None else graph
+    p = paired_ms(lambda: fn(table, idxs[next(it) % SETS]),
+                  lambda: torch.index_select(
+                      table, 0, live_idxs[next(it) % SETS]), PAIRS, timer)
+    print(paired_line(label, p), flush=True)
+    return p
 
 
 def bench_sort(*, batch=32, div=1, repeats=R, device):
@@ -135,10 +174,13 @@ def main(argv=None):
     for W in WIDTHS:
         bench_gather(make_dma(W), W, f"dma W={W} ({W * 4}B rows)", **sizes)
         bench_gather(lambda t, i: t[i], W, f"plain W={W}", **sizes)
+        pair_gather(make_dma(W), W, args.nidx, f"pair W={W}", **sizes)
     print("== row gather dynamic live count (W=128) ==")
     for nlive in (args.nidx, args.nidx // 4, args.nidx // 16):
         bench_gather(make_dma_dyn(128, nlive), 128,
                      f"dma W=128 live={nlive}", **sizes)
+        pair_gather(make_dma_dyn(128, nlive), 128, nlive,
+                    f"pair W=128 live={nlive}", **sizes)
     print("== plain gather, narrow rows ==")
     bench_gather(lambda t, i: t[i], 32, f"plain [{args.rows},32]", **sizes)
     bench_gather(lambda t, i: t[i], 32, f"plain [{args.rows // 8},32]",

@@ -20,10 +20,11 @@ sources in this checkout, then:
      kernels (``make_dma_gather``, ``make_dma``, ``make_dma_dyn``) bit-
      exactly against their plain version at the JAX tools' shapes (2M-row
      tables, 131,072 indices, 128-512 lanes, live counts 131,072 / 32,768
-     / 8,192), times both (``make_dma`` at 512 lanes in ``ROW_PAIRS``
-     alternating pairs with its library call), drives each once through
-     its tool's chained calls, counting the kernel's launches there, and
-     runs each tool's bench;
+     / 8,192), times each in ``ROW_PAIRS`` alternating pairs with its
+     library call, beside its bound and the copy ceiling (a contiguous
+     device-to-device copy of the same bytes), and its plain version,
+     drives each once through its tool's chained calls, counting the
+     kernel's launches there, and runs each tool's bench;
   4. decodes fixed loglikes through the full-size search (200k-state graph,
      K=512, B=16) on the card and on the CPU — the v3 engine, then the v2
      engine in closure and in sweeps ε mode: logs, words and costs must be
@@ -172,17 +173,18 @@ GATHER_CASES = [(32, 2048, 4096, 1, ""), (32, 4096, 1024, 1, ""),
                 (64, 41, 16384, 1, " (realistic acoustic)"),
                 (64, 16384, 2048, 1, " (realistic relax)")]
 # the fetch: (rows S, lanes L, [(B, K)]) — the smoke graph, the
-# production-size table at the search's 32 and 64-lane records, the
-# wide 128-lane record, and the realistic point's trie
+# production-size table at the search's 32, 64 and 128-lane records, and
+# the realistic point's trie
 FETCH_SHAPES = [(16, 512), (256, 512), (32, 4096)]
 FETCH_CASES = [(200_001, 32, FETCH_SHAPES), (2_500_000, 32, FETCH_SHAPES),
-               (2_500_000, 64, FETCH_SHAPES), (2_500_000, 128, [(16, 512)]),
+               (2_500_000, 64, FETCH_SHAPES), (2_500_000, 128, FETCH_SHAPES),
                (54_770, 64, [(64, 1024)])]
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published peak
 V3_GATHERS_PER_FRAME = 7           # phase 4: emit 5 + closure 2
 # the tools/perf row-gather microbenches (JAX tools' shapes)
 ROW_S, ROW_NIDX, ROW_WIDTHS = 2_000_000, 131_072, (128, 256, 512)
-ROW_PAIRS = 10                     # make_dma at 512 lanes: kernel/library pairs
+ROW_PAIRS = 10                     # kernel/library pairs of each row gather
+ROW_SETS = 16                      # index sets a timed loop cycles through
 ROW_LIVE = (131_072, 32_768, 8_192)
 # phase 7, the graph types: the CLG layer and its HMMs, the BigLM's LMs
 CLG_HMMS = 2000
@@ -424,39 +426,39 @@ def phase_kernels(dev) -> dict:
 # phase 3: the tools/perf row-gather kernels against their plain version
 # ----------------------------------------------------------------------
 
-def paired_ms(kernel, library, name: str) -> tuple[float, float]:
-    """Medians of ``ROW_PAIRS`` alternating device timings of ``kernel``
-    and ``library`` (kernel first in even pairs, library first in odd
-    ones), so that both see the same card state; prints each side's
-    median, range and the pairs the kernel wins."""
-    ks, ls = [], []
-    order = ((kernel, ks), (library, ls))
-    for i in range(ROW_PAIRS):
-        for fn, out in order if i % 2 == 0 else order[::-1]:
-            out.append(time_ms(fn, calls=10, replays=5)[0])
-    wins = sum(k < l for k, l in zip(ks, ls))
-    print(f"rows    {name} paired with its library call, {ROW_PAIRS} "
-          f"alternating pairs: kernel {np.median(ks):.4f} ms [{min(ks):.4f}, "
-          f"{max(ks):.4f}], library {np.median(ls):.4f} ms [{min(ls):.4f}, "
-          f"{max(ls):.4f}]; the kernel faster in {wins} of {ROW_PAIRS}")
-    return float(np.median(ks)), float(np.median(ls))
+def row_ms(fn) -> float:
+    """Device ms a call of one of phase 3's row gathers (or its library
+    call, or a copy) in the graph harness: ``ROW_SETS`` calls a loop, each
+    meant to take the next of ``ROW_SETS`` inputs."""
+    return time_ms(fn, calls=ROW_SETS, replays=5)[0]
 
 
 def phase_rows(dev) -> dict:
     """The three TPU microbench kernels' counterparts — one CUDA kernel,
-    ``ops/fetch.py:row_gather`` — against the plain ``table[idx]``; each
-    also drives its tool's chained calls (``bench_row_gather.chain``) once
+    ``ops/fetch.py:row_gather`` — against the plain ``table[idx]``, each
+    timed in ``ROW_PAIRS`` alternating pairs with ``torch.index_select``
+    over its live indices and beside the copy ceiling (a contiguous
+    device-to-device copy of the bytes it reads and writes); each also
+    drives its tool's chained calls (``bench_row_gather.chain``) once
     eagerly, the path whose launches are counted, and then runs through its
-    tool's bench, which prints the tool's rows."""
+    tool's bench, which prints the tool's rows.
+    Timed calls cycle through ``ROW_SETS`` index sets (the copy through as
+    many slices of the table), so that a loop touches several times the
+    50 MB L2 and the rows come from HBM, where the bytes bound holds."""
     from asr_decoder_tpu_torch.ops import fetch
     from asr_decoder_tpu_torch.tools.perf import bench_dma_variants as dv
     from asr_decoder_tpu_torch.tools.perf import bench_row_gather as rg
+    from asr_decoder_tpu_torch.tools.perf._common import (paired_line,
+                                                          paired_ms)
     gen = torch.Generator(device=dev).manual_seed(4)
-    idx = torch.randint(0, ROW_S, (ROW_NIDX,), generator=gen, device=dev,
-                        dtype=torch.int32)
+    idxs = [torch.randint(0, ROW_S, (ROW_NIDX,), generator=gen, device=dev,
+                          dtype=torch.int32) for _ in range(ROW_SETS)]
+    idx = idxs[0]
+    it = iter(range(1 << 30))
     out = {k: dict(max_abs_err=0.0, launches=0) for k in
            ("make_dma_gather", "make_dma", "make_dma_dyn")}
     rows = []
+    copies = {}
     for W in ROW_WIDTHS:
         table = torch.randint(-2**31, 2**31 - 1, (ROW_S, W), generator=gen,
                               device=dev, dtype=torch.int32)
@@ -474,34 +476,56 @@ def phase_rows(dev) -> dict:
                   f"{name} [{ROW_S},{W}] x {ROW_NIDX} rows < {n} bit-exact")
             err = (got[:n].double() - want[:n].double()).abs().max().item()
             out[name]["max_abs_err"] = max(out[name]["max_abs_err"], err)
+            del got, want
             fetch.launches = 0
             rg.chain(fn, table, idx)()
             torch.cuda.synchronize()
             out[name]["launches"] += fetch.launches
-            ms, wms = time_ms(lambda: fn(table, idx), calls=10, replays=5)
-            pms, pwms = time_ms(lambda: rg.xla_row_gather(table, idx),
-                                calls=10, replays=5)
-            live_idx = idx[:n]
-            lms, _ = time_ms(lambda: torch.index_select(table, 0, live_idx),
-                             calls=10, replays=5)
-            if (name, W) == ("make_dma", ROW_WIDTHS[-1]):
-                ms, lms = paired_ms(
-                    lambda: fn(table, idx),
-                    lambda: torch.index_select(table, 0, live_idx), name)
+            if (W, n) not in copies:
+                # the copy ceiling: the live rows' bytes read and written
+                # by one contiguous copy into a new tensor, as the kernel
+                # writes one, from distinct slices of the table in turn
+                srcs = [table[j * n:(j + 1) * n]
+                        for j in range(min(ROW_SETS, ROW_S // n))]
+                copies[W, n] = row_ms(
+                    lambda: srcs[next(it) % len(srcs)].clone())
+                cbms = bound_ms(8 * W * n)
+                rows.append(f"rows    copy ceiling [{n},{W}]: device-to-"
+                            f"device copy {copies[W, n]:.4f} ms, bound "
+                            f"{cbms:.4f} ms ({cbms / copies[W, n]:.1%})")
+                del srcs
+            cms = copies[W, n]
+            wms = time_ms(lambda: fn(table, idxs[next(it) % ROW_SETS]),
+                          calls=ROW_SETS, replays=5)[1]
+            pms, pwms = time_ms(lambda: rg.xla_row_gather(
+                table, idxs[next(it) % ROW_SETS]), calls=ROW_SETS,
+                replays=5)
+            live_idxs = [i[:n] for i in idxs]
+            paired = paired_ms(
+                lambda: fn(table, idxs[next(it) % ROW_SETS]),
+                lambda: torch.index_select(
+                    table, 0, live_idxs[next(it) % ROW_SETS]), ROW_PAIRS,
+                row_ms)
+            print("rows    " + paired_line(f"{name} W={W} live {n}", paired))
+            ms, lms = paired["kernel_ms"], paired["library_ms"]
             # the count, the live indices, each distinct row read once and
-            # each live output row written once
-            rows_read = torch.unique(live_idx).numel()
+            # each live output row written once; the mean over the sets
+            rows_read = np.mean([torch.unique(i).numel() for i in live_idxs])
             bms = bound_ms(4 + 4 * n + 4 * W * (rows_read + n))
             rows.append(f"rows    {name} [{ROW_S},{W}] x {ROW_NIDX}, live "
                         f"{n}: device kernel {ms:.4f} ms, bound "
-                        f"{bms:.4f} ms ({bms / ms:.1%}), plain {pms:.4f} "
-                        f"ms, library {lms:.4f} ms; per eager call kernel "
+                        f"{bms:.4f} ms ({bms / ms:.1%}), copy ceiling "
+                        f"{cms:.4f} ms ({bms / cms:.1%}; the kernel at "
+                        f"{cms / ms:.1%} of it), plain {pms:.4f} ms, "
+                        f"library {lms:.4f} ms; per eager call kernel "
                         f"{wms:.4f} ms plain {pwms:.4f} ms")
             if (name, W, n) in (("make_dma_gather", 128, ROW_NIDX),
                                 ("make_dma", ROW_WIDTHS[-1], ROW_NIDX),
                                 ("make_dma_dyn", 128, ROW_LIVE[1])):
                 out[name].update(ms=ms, plain_ms=pms, library_ms=lms,
                                  bound_ms=bms, bound_by="bytes")
+                if name == "make_dma":
+                    out[name]["copy_ms"] = cms
         del table
     for r in rows:
         print(r)

@@ -74,23 +74,39 @@ def test_fetch_kernel_matches_plain(cuda, S, L):
         np.testing.assert_array_equal(g, w)
 
 
+def _ragged_live(B, K):
+    """Live counts a row in turn: 0, K, K // 3, 1, past K, the int32
+    maximum (both read as K), K - 1 and 17.  The ragged ones end inside
+    a warp's 8 tokens and a block's 64 on the wide path, and inside a
+    thread's 4 tokens on the narrow one."""
+    return np.array([[0, K, K // 3, 1, K + 5, 2**31 - 1, K - 1, 17][b % 8]
+                     for b in range(B)], np.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [32, 64])
+@pytest.mark.parametrize("L", [32, 64, 128, 256, 512])
 @pytest.mark.parametrize("B,K", [(16, 512), (3, 37), (1, 4096), (256, 512)])
-def test_fetch_narrow_kernel_live_counts(cuda, L, B, K):
-    """The 32- and 64-lane records at the search's (B, K) and ragged ones:
-    live 0, partial and full (every row live in the last case), states out
-    of range clamped, the live rows bit-exact."""
-    table, state, live = _inputs(5000, L, B, K, seed=B + K + L)
+def test_fetch_kernel_live_counts(cuda, L, B, K):
+    """Every record width at the search's (B, K) and ragged ones: live 0,
+    partial, full and past K (every row live in the last case), states
+    out of range clamped, states repeated within a row, the live rows
+    bit-exact."""
+    table, state, _ = _inputs(5000, L, B, K, seed=B + K + L)
     rng = np.random.default_rng(L)
+    live = _ragged_live(B, K)
     state = np.where(rng.random(state.shape) < 0.05, 5000 + 7, state)
+    state = np.where(rng.random(state.shape) < 0.02, -3, state)
+    dup = rng.random(state.shape) < 0.1
+    state[dup] = np.broadcast_to(state[:, :1], state.shape)[dup]
     if B == 256:
         live[:] = K
         state = rng.integers(-2, 5002, (B, K)).astype(np.int32)
     t, s, lv = (torch.from_numpy(a).to(cuda) for a in (table, state, live))
+    before = F.launches
     got = F.fetch_records(t, s, lv)
     want = F.fetch_plain(t, s)
     torch.cuda.synchronize()
+    assert F.launches == before + 1
     for g, w in zip(_live_rows(got.cpu().numpy(), live),
                     _live_rows(want.cpu().numpy(), live)):
         np.testing.assert_array_equal(g, w)

@@ -118,6 +118,95 @@ def test_row_gather_kernel_matches_plain(cuda, W):
         assert torch.equal(got[:n], want[:n]), name
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", WIDTHS)
+def test_row_gather_kernel_counts(cuda, W):
+    """Device-side counts the microbenches never use: 0 (nothing read, the
+    launch still counted), past N (read as N), and ragged ones that end
+    inside a warp's 8 tokens or a block's 64; launched back to back on
+    one stream with no sync between, then all checked."""
+    rows, nidx = 100_000, 20_000
+    gen = torch.Generator(device=cuda).manual_seed(W + 1)
+    table = torch.randint(-2**31, 2**31 - 1, (rows, W), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    counts = [0, nidx + 9, 1_000, 8_195, nidx - 1, 17, 0, nidx]
+    idxs = [torch.randint(0, rows, (nidx,), generator=gen, device=cuda,
+                          dtype=torch.int32) for _ in counts]
+    before = F.launches
+    outs = [F.row_gather(table, i, torch.tensor([n], dtype=torch.int32,
+                                                device=cuda))
+            for i, n in zip(idxs, counts)]
+    torch.cuda.synchronize()
+    assert F.launches == before + len(counts)
+    for i, n, got in zip(idxs, counts, outs):
+        assert got.shape == (nidx, W)
+        want = F.fetch_plain(table, i[None])[0]
+        assert torch.equal(got[:n], want[:n]), n
+
+
+# -- the pairing helper (``tools/perf/_common.paired_ms``), stub timer --------
+
+def _stub_timer(times):
+    """A timer that records which callable it timed and returns the next
+    of ``times``."""
+    calls = []
+    it = iter(times)
+
+    def timer(fn):
+        calls.append(fn())
+        return next(it)
+    return timer, calls
+
+
+def test_paired_ms_alternates_order():
+    """The kernel goes first in even pairs and the library in odd ones."""
+    from asr_decoder_tpu_torch.tools.perf._common import paired_ms
+    timer, calls = _stub_timer([1.0] * 10)
+    p = paired_ms(lambda: "k", lambda: "l", 5, timer)
+    assert calls == ["k", "l", "l", "k", "k", "l", "l", "k", "k", "l"]
+    assert len(p["kernel"]) == len(p["library"]) == 5
+
+
+def test_paired_ms_medians_and_wins():
+    """Each side's times in pair order, their medians, and the pairs in
+    which the kernel is strictly faster (a tie is no win)."""
+    from asr_decoder_tpu_torch.tools.perf._common import paired_ms
+    # pair order k l | l k | k l | l k: kernel 1, 5, 3, 4; library 2, 4,
+    # 3, 9
+    timer, _ = _stub_timer([1.0, 2.0, 4.0, 5.0, 3.0, 3.0, 9.0, 4.0])
+    p = paired_ms(lambda: None, lambda: None, 4, timer)
+    assert p["kernel"] == [1.0, 5.0, 3.0, 4.0]
+    assert p["library"] == [2.0, 4.0, 3.0, 9.0]
+    assert p["kernel_ms"] == 3.5 and p["library_ms"] == 3.5
+    assert p["wins"] == 2
+
+
+def test_paired_line_reports_medians_ranges_and_wins():
+    from asr_decoder_tpu_torch.tools.perf._common import (paired_line,
+                                                          paired_ms)
+    timer, _ = _stub_timer([0.18, 0.19, 0.2, 0.17, 0.16, 0.19])
+    p = paired_ms(lambda: None, lambda: None, 3, timer)
+    assert paired_line("make_dma W=512", p) == (
+        "make_dma W=512 paired with its library call, 3 alternating pairs: "
+        "kernel 0.1700 ms [0.1600, 0.1800], library 0.1900 ms [0.1900, "
+        "0.2000]; the kernel faster in 3 of 3")
+
+
+def test_ab_tool_compares_live_rows_only():
+    """The A/B tool's bit-exact gate between two builds looks at the rows
+    below each live count and at nothing past them."""
+    from asr_decoder_tpu_torch.tools.perf.bench_kernels_ab import (
+        same_live_rows)
+    a = torch.arange(2 * 5 * 3, dtype=torch.int32).reshape(2, 5, 3)
+    b = a.clone()
+    b[0, 2:] = -1                       # past live[0] = 2
+    b[1, 4:] = -1                       # past live[1] = 4
+    assert same_live_rows(a, b, torch.tensor([2, 4]))
+    assert not same_live_rows(a, b, torch.tensor([3, 4]))
+    assert not same_live_rows(a, b, torch.tensor([2, 5]))
+    assert same_live_rows(a, b, torch.tensor([0, 0]))
+
+
 # -- the tools, smallest point on the CPU ------------------------------------
 
 def test_bench_row_gather_smoke(capsys):
@@ -135,7 +224,9 @@ def test_bench_dma_variants_smoke(capsys):
     out = capsys.readouterr().out
     for want in ("sort 3key [2,512] (v2 emit)", "top_k 512->64 [2]",
                  "dma W=512 (2048B rows)", "dma W=128 live=64",
-                 "plain [512,32]"):
+                 "plain [512,32]",
+                 "pair W=512 paired with its library call, 10 alternating",
+                 "pair W=128 live=64 paired with its library call"):
         assert want in out, want
     assert "graph" not in out          # no CUDA graph on the CPU
 
