@@ -27,15 +27,20 @@ the effective K = min(beam_width, max_active) and how often the emit
 stage's candidate count reaches the K·F cut of ``topk_overfetch``; the two
 relax engines (v2 = sort, v3 = topk) in alternating pairs at headline and
 realistic; and, with ``--profile-dir``, kernels per frame and the top
-device kernels of a few profiled frames per point.  It compares against no
-baseline.
+device kernels of a few profiled frames per point.
+
+Like the JAX script it compares the headline figure with the reference's
+production CPU serving node, which decodes ``BASELINE_AUDIO_S_PER_S`` = 60
+audio-seconds per second: ``vs_baseline`` = the headline pipeline median
+/ 60, rounded to 3 places.
 
 Prints human-readable progress on stderr and exactly one JSON line on
 stdout: ``{"metric": "audio_seconds_per_second_per_gpu", "value": headline
-pipeline median, "unit", "device", "pairs", "detail": {"headline": {...},
-"production": {...}, "realistic": {...}, "v2_vs_v3": {...}}}``.  Each
-point has ``graph_states``, ``batch``, ``frames``, ``relax``,
-``effective_K``, ``kf_bind`` and ``search_ms`` (a dict of median/min/max).
+pipeline median, "unit", "vs_baseline", "device", "pairs", "timing",
+"detail": {"headline": {...}, "production": {...}, "realistic": {...},
+"v2_vs_v3": {...}}}``.  Each point has ``graph_states``, ``batch``,
+``frames``, ``relax``, ``effective_K``, ``kf_bind`` and ``search_ms`` (a
+dict of median/min/max).
 
 Usage: python -m asr_decoder_tpu_torch.tools.bench [--quick]
        [--device cuda|cpu] [--pairs N] [--profile-dir=DIR]
@@ -61,6 +66,10 @@ from asr_decoder_tpu_torch.tools.perf._common import (device_arg,
                                                       open_device)
 
 NUM_PDFS = 2048
+# the reference's production CPU serving node decodes ~60 concurrent
+# real-time streams (--nthread=60 at decoder RTF ~1, ref:
+# src/v2-asrbin/conf/v2-conf.txt): ~60 audio-seconds per second
+BASELINE_AUDIO_S_PER_S = 60.0
 # the JAX script's packing threshold (its comment says 0.95, its code 0.75):
 # kept for the same packed frame count; ``models/nnet.py`` recommends 0.95
 BLANK_THRESH = float(np.log(0.75))
@@ -618,10 +627,12 @@ def main(argv=None) -> int:
             detail["v2_vs_v3"][name] = run.keep["engines"]
             log(f"{name} v2 vs v3, ms per advance, alternating pairs: "
                 f"{run.keep['engines']}")
+    value = detail["headline"]["audio_s_per_s"]["median"]
     print(json.dumps({
         "metric": "audio_seconds_per_second_per_gpu",
-        "value": detail["headline"]["audio_s_per_s"]["median"],
+        "value": value,
         "unit": "audio-s/s",
+        "vs_baseline": round(value / BASELINE_AUDIO_S_PER_S, 3),
         "device": where,
         "pairs": args.pairs,
         "timing": "wall ms between device synchronizes after a warm-up: "

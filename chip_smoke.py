@@ -39,7 +39,16 @@ sources in this checkout, then:
      and that both kernels launched during the serve run; then that
      arena's results: every channel's word alignment and lattice, and
      ``SESSION_UTTS`` of the waves decoded in lone card sessions, whose
-     alignments and 3-best texts the arena's channels must equal;
+     alignments and 3-best texts the arena's channels must equal; then the
+     two entry points a user starts, over the same files and flags:
+     ``cli.decode`` on ``CLI_UTTS`` of the waves written as wav files, each
+     utterance's words equal to a lone card session's over the whole wave
+     (%WER 0.00 against those words), both kernels then held bit-exactly
+     to their plain versions at every shape the CLI launched them at, and
+     ``cli.serve`` in a subprocess on a port the system picks
+     (``--port=0``), listening within ``CLI_START_S``, streamed
+     ``CLI_SERVE_UTTS`` of the waves at once through ``serving/client.py``,
+     their final texts equal to the decode CLI's, then terminated;
   7. graph types: the ``clg`` search (a 200k-state CLG layer over 2000
      three-state HMMs) and the ``biglm-hclg`` search (the 200k-state graph
      with the difference of a 20k-bigram and a 200k-bigram + 100k-trigram
@@ -117,9 +126,9 @@ sources in this checkout, then:
 
 Any failed check raises, so the script exits non-zero; it never falls back
 to the CPU.  Its last two lines are the kernels' JSON record (the five TPU
-kernels: the gather with its launches in the serve, graph-types, VAD serve
-and offline runs, the fetch with its launches in the serve, VAD serve and
-offline runs,
+kernels: the gather with its launches in the serve, decode CLI,
+graph-types, VAD serve and offline runs, the fetch with its launches in the
+serve, decode CLI, VAD serve and offline runs,
 the three microbench row gathers with their tool-path launches, each with
 its bound and library time; the search kernels' launches include
 phase 10's dp decodes, dp arena and BigLM dp decode) and
@@ -151,6 +160,9 @@ BATCH, FRAMES = 16, 133            # 4 s of audio after 3x subsampling
 V2_FRAMES = 67                     # the two v2 runs of phase 4: 2 s
 UTTS, UTT_SECONDS, CHUNK = 16, 4.0, 3200
 SESSION_UTTS = 4                   # served waves re-decoded in lone sessions
+CLI_UTTS, CLI_SERVE_UTTS = 4, 2    # waves through cli.decode, cli.serve
+CLI_START_S = 300.0                # cli.serve must listen within this
+CLI_REPLY_S = 300.0                # and answer its streams within this
 AM_ATOL = 1e-3                     # log-likelihood units
 # phase 2: the gather at the main path's shapes — (B, V, N, tables P,
 # label): the v3 relax tables at B=32, the acoustic lookup at the headline
@@ -840,6 +852,159 @@ def make_words(num_words: int):
     return words
 
 
+def cli_flags(dev) -> list[str]:
+    """The ``cli.decode`` / ``cli.serve`` flags that reproduce phase 6's
+    info: ``SEARCH``, the CTC blank shift, the fbank width and the AM's
+    frame skip, on ``dev``."""
+    return ([f"--{k.replace('_', '-')}={v}" for k, v in SEARCH.items()]
+            + ["--ctc-blank-shift=true", f"--fbank.num-bins={FEAT_DIM}",
+               f"--am.skip={SKIP}", f"--device={dev}"])
+
+
+def write_wav(path: Path, samples: np.ndarray) -> None:
+    import wave
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(np.asarray(samples, np.int16).tobytes())
+
+
+def cli_decode(info, tmp: Path, paths: list[str], waves) -> tuple:
+    """``cli.decode.main`` over ``waves`` written as 16-bit wav files, with
+    a wav list and a reference transcript of each wave's words in a lone
+    card ``OnlineDecoderSession`` over the whole wave; every utterance's
+    words must equal its session's (so %WER 0.00), and some words must be
+    decoded.  Both kernels are then held bit-exactly to their plain
+    versions at every shape the CLI's run launched them at.  Returns the
+    CLI's words by utterance and ``counted``'s record of the CLI's run,
+    with the kernels' max abs err."""
+    import contextlib
+    import io
+    from asr_decoder_tpu_torch.cli import decode
+    from asr_decoder_tpu_torch.serving.session import OnlineDecoderSession
+    want = {}
+    for i, w in enumerate(waves):
+        write_wav(tmp / f"u{i}.wav", w)
+        s = OnlineDecoderSession(info)
+        s.process_data(w.astype(np.float32), eos=True)
+        want[f"u{i}"] = s.get_best_path_txt()
+    (tmp / "wav.list").write_text("".join(f"{u} {tmp / u}.wav\n"
+                                          for u in want))
+    (tmp / "ref.txt").write_text("".join(f"{u} {t}\n"
+                                         for u, t in want.items()))
+    check(sum(len(t.split()) for t in want.values()) > 0,
+          "cli decode: the card sessions decoded some words")
+    out, err = io.StringIO(), io.StringIO()
+
+    def run():
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            return decode.main(cli_flags(info.device) + [
+                f"--ref-text={tmp / 'ref.txt'}", *paths,
+                str(tmp / "wav.list")])
+    t0 = time.perf_counter()
+    rc, n = counted(run, "cli decode")
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"cli decode: rc {rc}; stderr {err.getvalue()[-2000:]}")
+    got = dict((ln.split(" ", 1) + [""])[:2]
+               for ln in out.getvalue().splitlines())
+    same = sum(got.get(u) == t for u, t in want.items())
+    check(same == len(want) == len(got),
+          f"cli decode: {same} of {len(want)} utterances equal their card "
+          f"session ({len(got)} printed)")
+    lines = err.getvalue().splitlines()
+    rtf = [ln for ln in lines if "real-time factor" in ln]
+    wer = [ln for ln in lines if ln.startswith("%WER")]
+    check(len(rtf) == 1 and len(wer) == 1
+          and wer[0].startswith("%WER 0.00 "),
+          f"cli decode: one RTF line and %WER 0.00 ({rtf}, {wer})")
+    # the CLI counts subsampled frames at 100 a second, as the JAX CLI
+    # and the reference do: at skip 2 it reads ~3x the wall RTF
+    print(f"cli decode: {same}/{len(want)} equal their card session; "
+          f"%WER 0.00; RTF {rtf[0].rsplit(' ', 1)[1]} (the CLI's own line); "
+          f"{wall:.1f} s; kernel launches gather {n['gather']} fetch "
+          f"{n['fetch']}")
+    n["max_abs_err"] = hold_launched_shapes(info.device, n, "cli decode")
+    return got, n
+
+
+def cli_serve(dev, paths: list[str], waves, want: dict) -> None:
+    """``python -m asr_decoder_tpu_torch.cli.serve`` on the card in a
+    subprocess, over phase 6's files and flags on a port the system picks
+    (``--port=0``: the server's "listening on" line names it); once it
+    listens (within ``CLI_START_S``), ``waves`` are streamed to it at once
+    through ``serving/client.py`` in ``CHUNK`` pushes, and their final
+    texts must equal the decode CLI's (``want``: u<i> → words).  Then the
+    server is terminated and waited for."""
+    import re
+    import threading
+    from asr_decoder_tpu_torch.serving.client import AsyncAsrClient
+    from asr_decoder_tpu_torch.serving.protocol import EndFlag
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "asr_decoder_tpu_torch.cli.serve",
+         "--port=0", *cli_flags(dev), *paths],
+        cwd=Path(__file__).resolve().parent, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True)
+    log, up, bound = [], threading.Event(), []
+
+    def read():                 # drain stderr; note the port it listens on
+        for line in proc.stderr:
+            log.append(line.rstrip())
+            m = re.search(r"listening on [\d.]+:(\d+)\b", line)
+            if m and not up.is_set():
+                bound.append(int(m.group(1)))
+                up.set()
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        while not up.wait(0.2):
+            check(proc.poll() is None and time.perf_counter() - t0
+                  < CLI_START_S, f"cli serve: not listening (exit "
+                  f"{proc.poll()}, {time.perf_counter() - t0:.0f} s); "
+                  f"stderr {log[-20:]}")
+        start_s = time.perf_counter() - t0
+        port = bound[0]
+
+        async def one(w):
+            c = AsyncAsrClient("127.0.0.1", port)
+            await c.connect()
+            try:
+                t = time.perf_counter()
+                first = None
+                for off in range(0, len(w), CHUNK):
+                    r = await c.send_chunk(w[off:off + CHUNK],
+                                           end=off + CHUNK >= len(w))
+                    first = first or 1e3 * (time.perf_counter() - t)
+                return r, first
+            finally:
+                await c.close()
+
+        async def both():
+            return await asyncio.gather(*(one(w) for w in waves))
+        replies = asyncio.run(asyncio.wait_for(both(), CLI_REPLY_S))
+    finally:
+        proc.terminate()
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        reader.join(timeout=10)
+    check(rc in (0, -15), f"cli serve: exit {rc} on SIGTERM")
+    texts = [r.results[0].text
+             if r.end_flag == EndFlag.END and r.results else None
+             for r, _ in replies]
+    same = sum(t == want[f"u{i}"] for i, t in enumerate(texts))
+    check(same == len(waves), f"cli serve: {same} of {len(waves)} final "
+                              f"texts equal the decode CLI's")
+    print(f"cli serve: {same}/{len(waves)} equal the decode CLI; first "
+          f"reply after {min(f for _, f in replies):.1f} ms (from the "
+          f"first push of {len(waves)} streams at once); listening "
+          f"{start_s:.1f} s after the process started")
+
+
 def phase_serve(dev, nnet, fst) -> dict:
     from asr_decoder_tpu_torch.decoder.config import DecoderConfig
     from asr_decoder_tpu_torch.cli._model import build_info
@@ -858,11 +1023,14 @@ def phase_serve(dev, nnet, fst) -> dict:
             OnlineDecoderConfig(ctc_blank_shift=True),
             FbankConfig(num_bins=FEAT_DIM), AmConfig(skip=SKIP),
             {"trans-model": ""}, device=dev)
-    launches, eng, cids, waves = serve_check(info, UTTS, "serve")
-    check(launches["fetch"] > 0, "fetch kernel launched during the serve "
-                                 "run")
-    serve_results(info, eng, cids, waves)
-    return launches, info
+        launches, eng, cids, waves = serve_check(info, UTTS, "serve")
+        check(launches["fetch"] > 0, "fetch kernel launched during the "
+                                     "serve run")
+        serve_results(info, eng, cids, waves)
+        words, n = cli_decode(info, Path(tmp), paths, waves[:CLI_UTTS])
+        cli_serve(dev, paths, waves[:CLI_SERVE_UTTS], words)
+    return ({k: launches[k] + n[k] for k in ("gather", "fetch")}
+            | {"max_abs_err": n["max_abs_err"]}), info
 
 
 # ----------------------------------------------------------------------
@@ -2133,14 +2301,17 @@ def run_phases(dev, name: str, t0: float, tlg_proc) -> int:
                         graph_types.pop("biglm_search"))
     print(f"phase multi done at {time.perf_counter() - t0:.1f} s")
     check_imports()
-    # the search kernels' main-path launches: the serve run, the graph
+    # the search kernels' main-path launches: the serve run and the
+    # decode CLI's run, the graph
     # types' card searches and serve runs, the VAD-driven serve run, the
     # three offline points, the eval run, and phase 10's dp decodes, dp
     # arena and BigLM dp decode (each counted from 0 just before)
     kernels["gather"]["max_abs_err"] = max(
-        kernels["gather"]["max_abs_err"], graph_types["max_abs_err"],
-        offline["max_abs_err"], multi["max_abs_err"])
+        kernels["gather"]["max_abs_err"], launches["max_abs_err"],
+        graph_types["max_abs_err"], offline["max_abs_err"],
+        multi["max_abs_err"])
     kernels["fetch"]["max_abs_err"] = max(kernels["fetch"]["max_abs_err"],
+                                          launches["max_abs_err"],
                                           offline["max_abs_err"],
                                           multi["max_abs_err"])
     record = {"kernels": [

@@ -8,9 +8,16 @@ takes its place, written ``"module:attr"`` and resolved here, or the
 reason the port has none.  A class renamed through an entry carries its
 methods to the new class, where each must exist under its own name.
 
+The JAX package's root scripts (``bench.py``, ``eval.py``,
+``__graft_entry__.py``, ``tools/perf/*.py``) are held the same way to the
+port modules that take their place (``SCRIPTS``), with their own entries in
+``SCRIPT_COUNTERPARTS``.  Names bound only under ``if __name__ ==
+"__main__":`` are a script's locals, not its API, and are not counted.
+
 The JAX side is read by ``ast`` alone (nothing of it is imported); the
 port's modules are imported and their attributes looked up, so a name
-counts wherever the port binds it (defined, imported or inherited).
+counts wherever the port binds it (defined, imported or inherited).  An
+entry that names a port object may go on, after a space, with a note.
 """
 
 import ast
@@ -51,6 +58,34 @@ COUNTERPARTS = {
         "where it pads",
 }
 
+# the JAX package's root scripts, by path from the repo root → the port
+# module that takes each one's place
+SCRIPTS = {
+    "bench.py": f"{PORT}.tools.bench",
+    "eval.py": f"{PORT}.tools.eval",
+    "__graft_entry__.py": f"{PORT}.parallel.dryrun",
+    "tools/perf/bench_dma_variants.py": f"{PORT}.tools.perf.bench_dma_variants",
+    "tools/perf/bench_points.py": f"{PORT}.tools.perf.bench_points",
+    "tools/perf/bench_row_gather.py": f"{PORT}.tools.perf.bench_row_gather",
+    "tools/perf/profile_production.py":
+        f"{PORT}.tools.perf.profile_production",
+}
+
+# ``"<script path>:<name>"`` → the port's counterpart or the reason there is
+# none, as in ``COUNTERPARTS``
+SCRIPT_COUNTERPARTS = {
+    "__graft_entry__.py:Nnet_init_state":
+        f"{PORT}.models.nnet:Nnet.init_state",
+    "tools/perf/profile_production.py:CACHE":
+        "a fixed /tmp file; the port caches the graph inside the checkout, "
+        "at ops/_build.py:BUILD_DIR / prod_graph_<states>.npz, keyed by "
+        "its --states, and writes nothing outside the checkout",
+    # one main, whose --tlg chooses the composed TLG as the JAX script's
+    # __main__ chooses main_tlg
+    "tools/perf/profile_production.py:main_tlg":
+        f"{PORT}.tools.perf.profile_production:main",
+}
+
 _TARGET = re.compile(r"^[\w.]+:[\w.]+$")
 
 
@@ -58,10 +93,22 @@ def _public(name: str) -> bool:
     return not name.startswith("_")
 
 
+def _is_main_guard(node) -> bool:
+    t = node.test
+    return (isinstance(t, ast.Compare) and isinstance(t.left, ast.Name)
+            and t.left.id == "__name__"
+            and any(isinstance(c, ast.Constant) and c.value == "__main__"
+                    for c in t.comparators))
+
+
 def _top_level(body):
-    """Statements at module level, through ``if`` and ``try`` blocks."""
+    """Statements at module level, through ``if`` and ``try`` blocks; the
+    body of ``if __name__ == "__main__":`` is a script's, not the
+    module's."""
     for node in body:
-        if isinstance(node, (ast.If, ast.Try)):
+        if isinstance(node, ast.If) and _is_main_guard(node):
+            yield from _top_level(node.orelse)
+        elif isinstance(node, (ast.If, ast.Try)):
             yield from _top_level(node.body)
             yield from _top_level(node.orelse)
             yield from _top_level(getattr(node, "finalbody", []))
@@ -89,9 +136,20 @@ def public_names(path: Path) -> list[str]:
         elif isinstance(node, (ast.Assign, ast.AnnAssign)):
             targets = (node.targets if isinstance(node, ast.Assign)
                        else [node.target])
-            out += [n.id for t in targets for n in ast.walk(t)
-                    if isinstance(n, ast.Name) and _public(n.id)]
+            out += [n for t in targets for n in _bound(t) if _public(n)]
     return list(dict.fromkeys(out))
+
+
+def _bound(target) -> list[str]:
+    """Names an assignment target binds: a name, or the names it unpacks
+    into (``os.environ[k] = v`` binds none)."""
+    if isinstance(target, ast.Name):
+        return [target.id]
+    if isinstance(target, ast.Starred):
+        return _bound(target.value)
+    if isinstance(target, (ast.Tuple, ast.List)):
+        return [n for e in target.elts for n in _bound(e)]
+    return []
 
 
 def _resolve(target: str):
@@ -113,21 +171,24 @@ MODULES = sorted(p.relative_to(JAX).as_posix() for p in JAX.rglob("*.py"))
 
 
 def test_every_entry_names_a_jax_public_name():
-    for key in COUNTERPARTS:
-        rel, name = key.split(":")
-        assert name in public_names(JAX / rel), f"stale entry {key}"
+    for table, base in ((COUNTERPARTS, JAX), (SCRIPT_COUNTERPARTS, ROOT)):
+        for key in table:
+            rel, name = key.split(":")
+            assert name in public_names(base / rel), f"stale entry {key}"
 
 
-@pytest.mark.parametrize("rel", MODULES)
-def test_port_covers_module(rel):
-    port = importlib.import_module(_port_module(Path(rel)))
+def _lacks(port_name: str, path: Path, rel: str, table: dict) -> list[str]:
+    """The public names of the JAX file at ``path`` that the port module
+    ``port_name`` lacks, entries of ``table`` (keyed by ``rel``) taken
+    into account."""
+    port = importlib.import_module(port_name)
     missing = []
-    for name in public_names(JAX / rel):
+    for name in public_names(path):
         key = f"{rel}:{name}"
-        entry = COUNTERPARTS.get(key)
+        entry = table.get(key)
         if entry is None and "." in name:
             cls, meth = name.split(".", 1)
-            renamed = COUNTERPARTS.get(f"{rel}:{cls}")
+            renamed = table.get(f"{rel}:{cls}")
             if renamed is not None and _TARGET.match(renamed):
                 entry = f"{renamed}.{meth}"
         if entry is None:
@@ -144,5 +205,20 @@ def test_port_covers_module(rel):
                 missing.append(f"{name} -> {entry}")
         else:
             assert len(entry.split()) >= 5, f"{key}: state the reason"
-    assert not missing, (f"{_port_module(Path(rel))} lacks {missing}: port "
-                         "them or state the reason in COUNTERPARTS")
+    return missing
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_port_covers_module(rel):
+    port = _port_module(Path(rel))
+    missing = _lacks(port, JAX / rel, rel, COUNTERPARTS)
+    assert not missing, (f"{port} lacks {missing}: port them or state the "
+                         "reason in COUNTERPARTS")
+
+
+@pytest.mark.parametrize("rel", sorted(SCRIPTS))
+def test_port_covers_script(rel):
+    port = SCRIPTS[rel]
+    missing = _lacks(port, ROOT / rel, rel, SCRIPT_COUNTERPARTS)
+    assert not missing, (f"{port} lacks {missing} of {rel}: port them or "
+                         "state the reason in SCRIPT_COUNTERPARTS")

@@ -9,7 +9,9 @@ compare, a gather or a sort).  The tools' times are host-clock numbers and
 are only checked for their keys.
 """
 
+import ast
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from asr_decoder_tpu_torch.tools.perf import profile_production  # noqa: E402
 from test_torch_host_copies import assert_same  # noqa: E402
 
 CPU = torch.device("cpu")
+ROOT = Path(__file__).resolve().parents[1]
 STATS = {"median", "min", "max", "repeats"}
 POINT_KEYS = {"graph_states", "batch", "frames", "relax", "eps_mode", "beam",
               "beam_width", "max_active", "effective_K", "topk_overfetch",
@@ -62,11 +65,11 @@ def test_bench_quick_prints_one_json_line(capsys, tmp_path):
     lines = _json_line(capsys)
     assert len(lines) == 1
     out = json.loads(lines[0])
-    assert set(out) == {"metric", "value", "unit", "device", "pairs",
-                        "timing", "detail"}
+    assert set(out) == {"metric", "value", "unit", "vs_baseline", "device",
+                        "pairs", "timing", "detail"}
     assert out["metric"] == "audio_seconds_per_second_per_gpu"
     assert out["device"].startswith("device: cpu") and out["pairs"] == 1
-    assert "vs_baseline" not in lines[0]
+    assert out["vs_baseline"] == round(out["value"] / 60.0, 3)
     d = out["detail"]
     assert set(d) == {"headline", "production", "realistic", "v2_vs_v3"}
     for name in bench.POINT_FNS:
@@ -100,6 +103,34 @@ def test_bench_quick_prints_one_json_line(capsys, tmp_path):
         e = d["v2_vs_v3"][name]
         assert len(e["pairs_ms"]) == e["of"] == 1
         assert {"v2_median", "v3_median", "v2_faster_in"} <= set(e)
+
+
+def test_baseline_is_the_jax_benchs():
+    """``BASELINE_AUDIO_S_PER_S`` is the JAX ``bench.py``'s constant, read
+    from its source (the JAX script imports jax at module level)."""
+    tree = ast.parse((ROOT / "bench.py").read_text())
+    jax_value = [ast.literal_eval(n.value) for n in tree.body
+                 if isinstance(n, ast.Assign)
+                 and [t.id for t in n.targets] == ["BASELINE_AUDIO_S_PER_S"]]
+    assert jax_value == [bench.BASELINE_AUDIO_S_PER_S] == [60.0]
+
+
+@pytest.mark.parametrize("value", [0.0, 22.6, 1315.5, 1549.04])
+def test_vs_baseline_is_the_headline_over_the_node(monkeypatch, capsys,
+                                                   value):
+    """The JSON line's ``vs_baseline`` is its ``value``, the headline
+    pipeline median, over the reference node's 60 audio-s/s, to 3
+    places, whatever the other points report."""
+    def point(v):
+        return lambda device, **kw: bench.PointRun(
+            {"audio_s_per_s": {"median": v}})
+    monkeypatch.setattr(bench, "POINT_FNS", {
+        "headline": point(value), "production": point(-1.0),
+        "realistic": point(-2.0)})
+    assert bench.main(["--device", "cpu", "--pairs", "1"]) == 0
+    out = json.loads(_json_line(capsys)[-1])
+    assert out["value"] == value
+    assert out["vs_baseline"] == round(value / 60.0, 3)
 
 
 def test_eval_quick_prints_one_json_line(capsys):
