@@ -86,9 +86,16 @@ class Splice(Layer):
     """Frame splicing with repeat-edge padding (ref Splice::PropagateFnc +
     DnnFeat padding): offline, gather indices are clamped."""
 
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        # the offsets live on the layer's device: the forward copies
+        # nothing from the host, so a CUDA graph can capture it
+        self.register_buffer("offsets", torch.tensor(self.meta),
+                             persistent=False)
+
     def forward(self, x, state):
         T = x.shape[1]
-        off = torch.tensor(self.meta, device=x.device)
+        off = self.offsets.to(x.device)
         idx = (torch.arange(T, device=x.device)[:, None]
                + off[None, :]).clamp(0, T - 1)
         return x[:, idx, :].reshape(x.shape[0], T, -1), state

@@ -34,6 +34,7 @@ engine bit for bit:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +45,7 @@ from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.ops.fetch import fetch_records
 from asr_decoder_tpu_torch.ops.gather import (batched_table_gather,
                                               batched_table_gather_many)
+from asr_decoder_tpu_torch.utils.cuda_graphs import GraphRunner
 from asr_decoder_tpu_torch.utils.profiling import scope
 
 INF = float("inf")
@@ -520,18 +522,108 @@ def _np(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+FRAME_WINDOW = 64   # frames the frame loop's static buffers hold
+
+
+class _FrameBuffers(NamedTuple):
+    """The static buffers of one search's frame loop: a window of
+    ``FRAME_WINDOW`` frames' loglikes [W,B,V] and row masks [W,B] in;
+    ``pos`` i64[1], the window frame that the next frame reads and logs;
+    the carry lanes [B,K], updated in place; the window's logs out (prev
+    and aid [W,S,B,K], flags [W,B], snapshots [W,B,K] or [W,B,0])."""
+    lls: torch.Tensor
+    mask: torch.Tensor
+    pos: torch.Tensor
+    carry: tuple
+    prevs: torch.Tensor
+    aids: torch.Tensor
+    flags: tuple
+    snaps: tuple
+    slot: torch.Tensor      # i32[1,K], a masked row's prev
+
+
+def _live_frame(step, buf: _FrameBuffers) -> None:
+    """One live frame on the frame loop's buffers: the body that the card
+    captures once and replays (``utils/cuda_graphs.py``)."""
+    t = buf.pos
+    m = buf.mask.index_select(0, t)[0][:, None]            # [B,1]
+    new, prev, aid, *fl = step(buf.carry, buf.lls.index_select(0, t)[0])
+    for c, n in zip(buf.carry, new):
+        c.copy_(torch.where(m, n, c))
+    buf.prevs.index_copy_(0, t, torch.where(m[None], prev, buf.slot)[None])
+    buf.aids.index_copy_(0, t, torch.where(m[None], aid, ARC_STAY)[None])
+    for log, f in zip(buf.flags, fl):
+        log.index_copy_(0, t, (f & m[:, 0])[None])
+    for snap, c in zip(buf.snaps, buf.carry):
+        if snap.shape[2]:
+            snap.index_copy_(0, t, c[None])
+    buf.pos.add_(1)
+
+
+def _dead_frame(buf: _FrameBuffers, i: int) -> None:
+    """Window frame ``i`` is masked in every row: the frame step is
+    skipped, every row keeps its carry and logs its own slot and
+    ARC_STAY."""
+    buf.prevs[i] = buf.slot
+    buf.aids[i] = ARC_STAY
+    for log in buf.flags:
+        log[i] = False
+    for snap, c in zip(buf.snaps, buf.carry):
+        if snap.shape[2]:
+            snap[i] = c
+    buf.pos.add_(1)
+
+
+def _frame_loop(graphs: dict, step, carry: tuple, V: int, stages: int,
+                flags: int, snap_k: int, device) -> GraphRunner:
+    """The search's frame runner for this static key, made at first use:
+    the counterpart of the JAX jit cache, keyed by the shapes and dtypes
+    (the search's static config is fixed for the search)."""
+    B, K = carry[0].shape
+    key = (B, K, V, stages, flags, snap_k, str(device),
+           tuple(c.dtype for c in carry))
+    run = graphs.get(key)
+    if run is None:
+        W = FRAME_WINDOW
+        buf = _FrameBuffers(
+            lls=torch.empty((W, B, V), dtype=torch.float32, device=device),
+            mask=torch.empty((W, B), dtype=torch.bool, device=device),
+            pos=torch.zeros((1,), dtype=torch.int64, device=device),
+            carry=tuple(torch.empty_like(c) for c in carry),
+            prevs=torch.empty((W, stages, B, K), dtype=torch.int32,
+                              device=device),
+            aids=torch.empty((W, stages, B, K), dtype=torch.int32,
+                             device=device),
+            flags=tuple(torch.empty((W, B), dtype=torch.bool, device=device)
+                        for _ in range(flags)),
+            snaps=tuple(torch.empty((W, B, snap_k), dtype=c.dtype,
+                                    device=device) for c in carry),
+            slot=_lane_iota(K, device))
+        run = graphs[key] = GraphRunner(functools.partial(_live_frame, step),
+                                        buf, device)
+    return run
+
+
 def run_frames(step, carry: tuple, loglikes, frame_mask, *, device,
-               stages: int, snapshots: bool, pdf_max: int, flags: int = 0):
+               stages: int, snapshots: bool, pdf_max: int, graphs: dict,
+               flags: int = 0):
     """The frame loop every search shares (the JAX ``lax.scan`` over a
     chunk): ``step(carry, ll f32[B,V])`` returns ``(carry, prev, aid,
     *flags)`` — ``carry`` a tuple of [B,K] beam lanes, ``prev``/``aid``
     i32[stages,B,K], each flag bool[B].  A row whose frame is masked keeps
     its carry and logs prev = its own slot, aid = ARC_STAY, flags False.
 
+    Each live frame is one call of the search's frame runner from
+    ``graphs`` (one replay of a captured CUDA graph on the card): the
+    runner reads its frame from a window of ``FRAME_WINDOW`` frames in
+    static buffers and writes the frame's logs there, so the host copies
+    a window in and its logs out, and copies nothing a frame.
+
     ``loglikes`` f32[B,T,V] and ``frame_mask`` bool[B,T] (None = all
     frames), host or device.  Returns ``(carry, prevs [T,S,B,K], aids,
-    flags [T,B] each, snapshots [T,B,K] per carry lane)``; the snapshots
-    are [T,B,0] with ``snapshots`` off."""
+    flags [T,B] each, snapshots [T,B,K] per carry lane)``, none of them
+    sharing memory with the runner's buffers; the snapshots are [T,B,0]
+    with ``snapshots`` off."""
     lls = torch.as_tensor(loglikes, dtype=torch.float32, device=device)
     B, T, V = lls.shape
     if pdf_max >= V:
@@ -546,31 +638,38 @@ def run_frames(step, carry: tuple, loglikes, frame_mask, *, device,
     # SkipBlockFrame fast path, ref nnet-nnet.h:265-275); decided on the
     # host once per chunk, so the frame loop never syncs
     live_frames = mask_host.any(axis=0)
-    lls = lls.transpose(0, 1).contiguous()                 # [T,B,V]
     K = carry[0].shape[1]
     snap_k = K if snapshots else 0
     prevs = torch.empty((T, stages, B, K), dtype=torch.int32, device=device)
     aids = torch.empty_like(prevs)
-    flag_logs = [torch.zeros((T, B), dtype=torch.bool, device=device)
+    flag_logs = [torch.empty((T, B), dtype=torch.bool, device=device)
                  for _ in range(flags)]
     snaps = [torch.empty((T, B, snap_k), dtype=c.dtype, device=device)
              for c in carry]
-    slot = _lane_iota(K, device)                           # [1,K]
-    for t in range(T):
-        if live_frames[t]:
-            new, prev, aid, *fl = step(carry, lls[t])
-            m = mask[:, t, None]
-            carry = tuple(torch.where(m, n, o) for n, o in zip(new, carry))
-            prevs[t] = torch.where(m[None], prev, slot)
-            aids[t] = torch.where(m[None], aid, ARC_STAY)
-            for log, f in zip(flag_logs, fl):
-                log[t] = f & mask[:, t]
-        else:
-            prevs[t] = slot
-            aids[t] = ARC_STAY
-        if snap_k:
-            for snap, c in zip(snaps, carry):
-                snap[t] = c
+    run = _frame_loop(graphs, step, carry, V, stages, flags, snap_k, device)
+    buf = run.buffers
+    with run.lock:
+        for c, src in zip(buf.carry, carry):
+            c.copy_(src)
+        for w0 in range(0, T, FRAME_WINDOW):
+            n = min(FRAME_WINDOW, T - w0)
+            win = slice(w0, w0 + n)
+            buf.lls[:n] = lls[:, win].transpose(0, 1)
+            buf.mask[:n] = mask[:, win].t()
+            buf.pos.zero_()
+            for i in range(n):
+                if live_frames[w0 + i]:
+                    run()
+                else:
+                    _dead_frame(buf, i)
+            prevs[win] = buf.prevs[:n]
+            aids[win] = buf.aids[:n]
+            for log, f in zip(flag_logs, buf.flags):
+                log[win] = f[:n]
+            if snap_k:
+                for snap, s in zip(snaps, buf.snaps):
+                    snap[win] = s[:n]
+        carry = tuple(c.clone() for c in buf.carry)
     return carry, prevs, aids, flag_logs, snaps
 
 
@@ -628,6 +727,7 @@ class TorchBeamSearch:
                  device: torch.device | str):
         self.config = config or DecoderConfig()
         cfg = self.config
+        self._graphs: dict = {}   # frame runners by static key (run_frames)
         cfg.check()
         if cfg.gather_impl or cfg.fetch_impl:
             raise ValueError(
@@ -661,11 +761,6 @@ class TorchBeamSearch:
             self._cfg = dict(common, E=eps_iters, mode=self.mode)
             self.num_stages = 1 + (eps_iters if self.mode == "sweeps"
                                    else int(C > 0))
-
-    def _frame(self, st, co, ll):
-        if self.relax_impl == "topk":
-            return _frame_step_v3(self.pgraph, st, co, ll, cfg=self._cfg)
-        return _frame_step(self.graph, st, co, ll, cfg=self._cfg)
 
     # -- InitDecoding ------------------------------------------------------
     @torch.inference_mode()
@@ -702,14 +797,20 @@ class TorchBeamSearch:
         host or device.  Returns the new beam and the chunk's logs
         (prev/aid [T,S,B,K], snapshots [T,B,K], or [T,B,0] with
         ``log_snapshots`` off) on the search's device."""
+        # the cached frame runner keeps the step: it holds the tables and
+        # the config, not the search
+        frame = (functools.partial(_frame_step_v3, self.pgraph, cfg=self._cfg)
+                 if self.relax_impl == "topk" else
+                 functools.partial(_frame_step, self.graph, cfg=self._cfg))
+
         def step(carry, ll):
-            ns, nc, prev, aid = self._frame(*carry, ll)
+            ns, nc, prev, aid = frame(*carry, ll)
             return (ns, nc), prev, aid
 
         carry, prevs, aids, _, snaps = run_frames(
             step, tuple(state), loglikes, frame_mask, device=self.device,
             stages=self.num_stages, snapshots=self.config.log_snapshots,
-            pdf_max=self._pdf_max)
+            pdf_max=self._pdf_max, graphs=self._graphs)
         return BeamState(*carry), FrameLog(prevs, aids, *snaps)
 
     def decode(self, loglikes, frame_mask=None):

@@ -229,6 +229,7 @@ class TorchBigLmBeamSearch:
                  difflm: DeviceDiffLm, config: DecoderConfig | None = None,
                  *, device: torch.device | str):
         self.config = cfg = config or DecoderConfig()
+        self._graphs: dict = {}   # frame runners by static key (run_frames)
         cfg.check()
         if cfg.gather_impl or cfg.fetch_impl:
             raise ValueError(
@@ -316,7 +317,7 @@ class TorchBigLmBeamSearch:
         carry, prevs, aids, (ovf,), snaps = run_frames(
             step, tuple(state), loglikes, frame_mask, device=self.device,
             stages=self.num_stages, snapshots=self.config.log_snapshots,
-            pdf_max=self._pdf_max, flags=1)
+            pdf_max=self._pdf_max, graphs=self._graphs, flags=1)
         return (BigLmBeamState(*carry),
                 BigLmFrameLog(prevs, aids, ovf, *snaps))
 

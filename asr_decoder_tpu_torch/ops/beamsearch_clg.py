@@ -246,6 +246,7 @@ class TorchClgBeamSearch:
                  device: torch.device | str):
         self.config = config or DecoderConfig()
         self.config.check()
+        self._graphs: dict = {}   # frame runners by static key (run_frames)
         if self.config.gather_impl or self.config.fetch_impl:
             raise ValueError(
                 "gather_impl/fetch_impl name TPU paths; in the PyTorch port "
@@ -286,18 +287,18 @@ class TorchClgBeamSearch:
                 ) -> tuple[BeamState, FrameLog]:
         """loglikes f32[B,T,V], frame_mask bool[B,T]; logs prev/aid
         [T,S,B,K] and snapshots [T,B,K] ([T,B,0] with log_snapshots off)."""
+        g, cfg = self.graph, self._cfg     # the cached runner keeps these
+
         def step(carry, ll):
-            ns, nc, prev0, aid0 = _emit_stage(self.graph, *carry, ll,
-                                              cfg=self._cfg)
-            ns, nc, (eprev, eaid) = _eps_stages(self.graph, ns, nc,
-                                                cfg=self._cfg)
+            ns, nc, prev0, aid0 = _emit_stage(g, *carry, ll, cfg=cfg)
+            ns, nc, (eprev, eaid) = _eps_stages(g, ns, nc, cfg=cfg)
             return ((ns, nc), torch.cat([prev0[None], eprev]),
                     torch.cat([aid0[None], eaid]))
 
         carry, prevs, aids, _, snaps = run_frames(
             step, tuple(state), loglikes, frame_mask, device=self.device,
             stages=self.num_stages, snapshots=self.config.log_snapshots,
-            pdf_max=self._pdf_max)
+            pdf_max=self._pdf_max, graphs=self._graphs)
         return BeamState(*carry), FrameLog(prevs, aids, *snaps)
 
     def decode(self, loglikes, frame_mask=None):

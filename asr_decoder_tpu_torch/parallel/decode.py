@@ -49,6 +49,7 @@ def replicate_search(search, device):
         rep = copy.copy(search)
         rep.device = device
         rep._replicas = {}
+        rep._graphs = {}        # its frame runners capture its own tables
         for attr in ("graph", "pgraph"):
             tables = getattr(search, attr, None)
             if tables is not None:

@@ -37,7 +37,7 @@ from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.frontend.fbank import CmvnConfig, FbankConfig
 from asr_decoder_tpu_torch.frontend.pipeline import StreamingFrontend
 from asr_decoder_tpu_torch.frontend.pitch import ProcessPitchConfig
-from asr_decoder_tpu_torch.models.nnet import (AmConfig, Nnet, am_forward,
+from asr_decoder_tpu_torch.models.nnet import (AmConfig, GraphedAm, Nnet,
                                                blank_frame_mask)
 from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
 from asr_decoder_tpu_torch.ops.beamsearch_biglm import TorchBigLmBeamSearch
@@ -194,6 +194,7 @@ class OnlineDecoderInfo:
             self.splice_offsets = None
             self.am_layers = layers
         self.left, self.right = self.nnet.context()
+        self._am_graphs: dict[tuple, GraphedAm] = {}
 
     @property
     def seconds_per_frame(self) -> float:
@@ -237,13 +238,20 @@ class OnlineDecoderInfo:
         """One chunk through the AM (``am_layers``, or their replica
         ``layers`` on another device): feats f32[B, C, D] on the layers'
         device, ``valid`` host i32[B] real frames per row → (loglikes [B,
-        C', V], new AM state, host frame mask bool[B, C'])."""
+        C', V], new AM state, host frame mask bool[B, C']).  The chunk runs
+        through a ``GraphedAm`` of the layer list (one replay of a captured
+        graph on a card), so it must run without autograd."""
         ac = self.am_config
+        layers = self.am_layers if layers is None else layers
+        # one GraphedAm a layer list (it holds the layers, so the ids stay
+        # theirs while it is cached)
+        key = tuple(id(l) for l in layers)
+        if key not in self._am_graphs:
+            self._am_graphs[key] = GraphedAm(layers)
         # skip_copy mode subsamples + score-copies inside am_forward; each
         # chunk is phase-aligned (chunk_frames % (skip+1) == 0)
-        loglikes, am_state = am_forward(
-            self.am_layers if layers is None else layers, feats, am_state,
-            do_softmax=ac.do_softmax, do_log=ac.do_log,
+        loglikes, am_state = self._am_graphs[key](
+            feats, am_state, do_softmax=ac.do_softmax, do_log=ac.do_log,
             sub_prior=ac.sub_prior, block_pdf_pdfid=ac.block_pdf_pdfid,
             block_scale=ac.block_scale, skip_block=ac.skip_block,
             skip=ac.skip if ac.skip_copy else 0, skip_copy=ac.skip_copy)

@@ -5,7 +5,9 @@ Pipeline — the reference's canonical serve path (SURVEY §3.1: fbank → AM
 forward → WFST beam search), batched: 16 kHz waveform batch → 80-dim fbank →
 flagship projected-LSTM AM with frame-subsampling 3 → batched
 frame-synchronous Viterbi beam search with full backpointer logging →
-per-utterance words.
+per-utterance words.  On a card the AM pass (``GraphedAm``) and every
+search frame are replays of captured CUDA graphs, as the JAX script's are
+compiled programs.
 
 Three operating points, the same shapes and numpy seeds as the JAX script:
   * headline — 200k-state HCLG-shaped graph, 256 concurrent streams of 8 s,
@@ -252,7 +254,7 @@ def headline(device, *, pairs: int = 10, batch: int = 256,
     from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
     from asr_decoder_tpu_torch.fst.synthetic import random_hclg
     from asr_decoder_tpu_torch.models.flagship import make_flagship
-    from asr_decoder_tpu_torch.models.nnet import am_forward
+    from asr_decoder_tpu_torch.models.nnet import GraphedAm
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
 
     rng = np.random.default_rng(0)
@@ -274,10 +276,12 @@ def headline(device, *, pairs: int = 10, batch: int = 256,
         (rng.standard_normal((batch, int(sr * secs))) * 1000)
         .astype(np.float32)).to(device)
 
+    am = GraphedAm(nnet.layers)
+
     @torch.inference_mode()
     def am_fn(w):
         feats = compute_fbank(fb_cfg, w)
-        ll, _ = am_forward(nnet.layers, feats, am_state, skip=skip)
+        ll, _ = am(feats, am_state, skip=skip)
         return ll
 
     def pipeline():

@@ -6,8 +6,10 @@ or, with ``--tlg``, the composed TLG of the bench tool's production point
 with its packed CTC-spiky posteriors (its ``main_tlg``), times one
 ``search.advance`` of 32 streams (88 frames at K = 4096; for the TLG the
 packed 264), then runs its first 8 frames under ``torch.profiler``
-and prints, per frame, the device time of the named search ranges and of
-the top kernels (CPU self-time on the CPU) from ``key_averages()``, and
+and prints, per frame, the device time of the named search ranges (on
+the CPU only: the card replays each frame as a captured graph, which
+carries no ranges) and of the top kernels (CPU self-time on the CPU)
+from ``key_averages()``, and
 the device busy share against the unprofiled frame time; the Chrome trace
 goes to ``--trace-dir``.
 

@@ -1,0 +1,125 @@
+"""Captured CUDA graphs: the port's counterpart of ``jax.jit``.
+
+The JAX package runs a chunk of frames as one compiled device program
+(``lax.scan`` over a jitted frame step, cached by the static config and the
+array shapes).  PyTorch runs eagerly, so every op of a search frame or an
+AM chunk would be a host launch; here the work is captured once as a
+``torch.cuda.CUDAGraph`` and replayed.
+
+``GraphRunner`` owns the capture, the static buffers and the replay of one
+callable for one static key: its owner keeps one runner a key (shapes,
+dtypes, device, static config), as the JAX jit cache does.  The callable
+takes the buffers (any object holding tensors), reads and writes them in
+place and may return tensors, the static outputs, which every replay
+overwrites — a caller that keeps a result clones it.
+
+  * On a CUDA device the first call runs the callable eagerly as the real
+    call (that builds and loads the kernels and lets the libraries set
+    up), then captures it, which runs nothing; every later call is one
+    replay, on the caller's current stream.  A capture that fails raises
+    with the op's error: there is no eager fallback and no switch that
+    turns the graphs off.
+  * On the CPU, which only tests and ``--device cpu`` ask for, every call
+    runs the callable on the same static buffers, so the CPU tests
+    exercise the buffer handling that the card replays.
+  * A runner refuses to run with autograd on (a graph records no
+    backward): training stays eager.
+
+Launch counters.  The kernel wrappers (``ops/gather.py``, ``ops/fetch.py``)
+count their launches in Python, which a capture runs once and a replay
+never.  ``LaunchCounts`` takes each counter's change during a capture back
+and adds it again at every replay, with the launch shapes the capture
+recorded, so the counts read as those of the eager run of the same work.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+
+import torch
+
+
+def _counted_modules() -> tuple:
+    from asr_decoder_tpu_torch.ops import fetch, gather
+    return (gather, fetch)
+
+
+class LaunchCounts:
+    """The launch counts (``launches`` and the ``shapes`` set, which is None
+    while nobody records) of ``modules`` that one captured graph makes at
+    each replay."""
+
+    def __init__(self, modules=None):
+        self.modules = tuple(_counted_modules() if modules is None
+                             else modules)
+        self.launches = [0] * len(self.modules)
+        self.shapes: list[set] = [set() for _ in self.modules]
+
+    @contextmanager
+    def capture(self):
+        """Record each counter's change inside the block, then restore the
+        counters: the block launched nothing."""
+        before = [m.launches for m in self.modules]
+        saved = [m.shapes for m in self.modules]
+        for m in self.modules:
+            m.shapes = set()
+        try:
+            yield
+        finally:
+            for i, m in enumerate(self.modules):
+                self.launches[i] = m.launches - before[i]
+                self.shapes[i] = m.shapes
+                m.launches, m.shapes = before[i], saved[i]
+
+    def replay(self) -> None:
+        """Add one replay's launches (and shapes, where recorded)."""
+        for m, n, shapes in zip(self.modules, self.launches, self.shapes):
+            m.launches += n
+            if m.shapes is not None:
+                m.shapes |= shapes
+
+
+class GraphRunner:
+    """``body(buffers)`` as one captured CUDA graph on ``device``, or
+    called directly on the CPU (module docstring).  A caller
+    holds ``lock`` from filling the buffers to reading the results: the
+    buffers are shared by every caller of the runner."""
+
+    def __init__(self, body, buffers, device: torch.device):
+        self.body = body
+        self.buffers = buffers
+        self.device = torch.device(device)
+        self.lock = threading.Lock()
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.counts = LaunchCounts()
+        self._outputs = None
+
+    def __call__(self):
+        if torch.is_grad_enabled():
+            raise RuntimeError("a captured graph records no backward: run "
+                               "it under torch.inference_mode() or "
+                               "torch.no_grad()")
+        if self.device.type != "cuda":
+            return self._eager()
+        if self.graph is None:
+            return self._capture()
+        self.graph.replay()
+        self.counts.replay()
+        return self._outputs
+
+    def _eager(self):
+        """The body on the buffers, uncaptured: the CPU path (and, on the
+        card, the eager side of ``chip_smoke.py``'s graph-vs-eager A/B)."""
+        return self.body(self.buffers)
+
+    def _capture(self):
+        """The first call: run eagerly, then capture (``torch.cuda.graph``
+        waits for the eager run and captures on a stream of its own)."""
+        with torch.cuda.device(self.device):
+            out = self._eager()
+            graph = torch.cuda.CUDAGraph()
+            with self.counts.capture(), torch.cuda.graph(graph):
+                self._outputs = self.body(self.buffers)
+        self.graph = graph
+        return out

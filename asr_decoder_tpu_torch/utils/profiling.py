@@ -2,7 +2,10 @@
 
 Port of ``asr_decoder_tpu/utils/profiling.py``.  ``scope(name)`` marks a
 range of the search (``search/emit``, ``search/eps``, ``search/emit3``,
-``search/eps3``) that shows in a trace and in ``key_averages()`` by name;
+``search/eps3``) that shows in a trace and in ``key_averages()`` by name
+where the search runs eagerly (on the CPU; on the card a captured frame
+graph's replays carry no ranges, so per-stage device time there is read
+from the kernels' names);
 ``trace(dir)`` records a block with ``torch.profiler`` (host, and the card
 where there is one) and writes a Chrome trace, viewable in Perfetto or
 ``chrome://tracing``.

@@ -30,9 +30,21 @@ sources in this checkout, then:
      engine in closure and in sweeps ε mode: logs, words and costs must be
      bit-identical (every search op is an exact fp32 add/compare, gather or
      sort), the gather kernel must launch in each v2 run, and a v3 frame
-     makes exactly ``V3_GATHERS_PER_FRAME`` gather launches;
+     makes exactly ``V3_GATHERS_PER_FRAME`` gather launches.  Each search
+     runs every live frame as one replay of a captured CUDA graph
+     (``utils/cuda_graphs.py``); a "graphs" line a search holds it against
+     the eager frame loop on the card (each runner's body called directly,
+     ``eager_graphs``) over ``GRAPH_FRAMES`` frames with a dead frame and a
+     partly masked row: beam, logs and snapshots bit-identical, kernel
+     launches equal, then ms/frame of each in ``GRAPH_PAIRS`` alternating
+     pairs, host-issued CUDA calls (launches, copies, fills) a frame and
+     the card's busy share (profiler device ms over wall ms);
   5. runs the full-width flagship AM on the card and on the CPU
-     (allclose, ``AM_ATOL``: the products sum in another order);
+     (allclose, ``AM_ATOL``: the products sum in another order), then a
+     "graphs" line for the AM chunk as ``OnlineDecoderInfo.score`` runs it
+     (``GraphedAm``, [BATCH, ``AM_CHUNK``, 240] from a mid-stream carry):
+     log-likelihoods and carries bit-identical graph against eager, ms a
+     chunk in alternating pairs, host calls and busy share;
   6. serves 16 concurrent 4-second utterances through the port's
      ``AsrServer`` built by its CLI loader, and checks every final reply
      against an in-process ``BatchedStreamingDecoder`` on the same waves,
@@ -57,7 +69,8 @@ sources in this checkout, then:
      ``GT_FRAMES`` frames of fixed loglikes decoded on the card and on the
      CPU with bit-identical logs,
      LM lanes, overflow flags, words and costs, the BigLM compaction one
-     gather launch for its seven operands, then 8 concurrent utterances
+     gather launch for its seven operands, a "graphs" line each as in
+     phase 4, then 8 concurrent utterances
      of ``GT_SECONDS`` served (``clg`` through the CLI loader's
      ``--hmmfst-file``), every reply equal to the in-process batcher, the
      gather kernel launching in each run;
@@ -146,6 +159,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -207,6 +221,12 @@ LM2 = dict(vocab_size=LM_VOCAB, n_bigram=200_000, n_trigram=100_000,
 GT_UTTS, GT_SECONDS = 8, 2.0        # the served run of each graph type
 GT_FRAMES = 34                     # card-vs-CPU decode: 1 s after subsampling
 PROFILE_FRAMES = 4                 # frames profiled for kernels/frame
+# the graph-vs-eager lines of phases 4, 5 and 7: each search over
+# GRAPH_FRAMES frames with frame GRAPH_DEAD masked in every row and row
+# GRAPH_ROW masked from GRAPH_ROW_LEN on; the AM over one served chunk
+GRAPH_FRAMES, GRAPH_DEAD, GRAPH_ROW, GRAPH_ROW_LEN = 34, 5, 3, 20
+GRAPH_PAIRS = 10                   # alternating graph/eager timing pairs
+AM_CHUNK = 32                      # the serve path's chunk_frames
 # phase 8, the VAD-driven serve path
 PITCH_DIM = 3                      # POV, normalized log pitch, delta pitch
 VAD_STREAMS = 8
@@ -576,25 +596,42 @@ def fixed_loglikes(frames: int, seed: int = 1) -> np.ndarray:
     return sc - np.log(np.exp(sc).sum(-1, keepdims=True))
 
 
-def kernels_per_frame(search, ll: torch.Tensor) -> tuple[float, float]:
-    """(CUDA kernels a frame, memsets and copies included; their device ms
-    a frame), from ``torch.profiler`` over ``PROFILE_FRAMES`` frames of one
-    advance."""
+# host-issued CUDA calls that enqueue work: kernel and graph launches,
+# copies and fills (the runtime and driver API names the profiler records)
+ENQUEUE_CALLS = ("Launch", "Memcpy", "Memset")
+
+
+def profile_cuda(fn) -> tuple[int, float, int]:
+    """(CUDA kernels, memsets and copies included; their device ms; the
+    host-issued CUDA calls that enqueue work) of one call of ``fn``, from
+    ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from asr_decoder_tpu_torch.tools.perf.profile_production import \
         _device_us
-    state, _ = search.init_state(ll.shape[0])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        search.advance(state, ll[:, :PROFILE_FRAMES])
+        fn()
         torch.cuda.synchronize()
+    evs = prof.key_averages()
     # the search's named ranges are spans with gaps: leave them out
-    ops = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
+    ops = [e for e in evs if e.device_type == DeviceType.CUDA
            and not getattr(e, "is_user_annotation", False)]
-    return (sum(e.count for e in ops) / PROFILE_FRAMES,
-            sum(_device_us(e) for e in ops) / 1e3 / PROFILE_FRAMES)
+    calls = sum(e.count for e in evs if e.device_type == DeviceType.CPU
+                and e.key.startswith("cu")
+                and any(w in e.key for w in ENQUEUE_CALLS))
+    return (sum(e.count for e in ops),
+            sum(_device_us(e) for e in ops) / 1e3, calls)
+
+
+def kernels_per_frame(search, ll: torch.Tensor) -> tuple[float, float]:
+    """(CUDA kernels a frame, memsets and copies included; their device ms
+    a frame), from ``torch.profiler`` over ``PROFILE_FRAMES`` frames of one
+    advance."""
+    state, _ = search.init_state(ll.shape[0])
+    n, ms, _ = profile_cuda(
+        lambda: search.advance(state, ll[:, :PROFILE_FRAMES]))
+    return n / PROFILE_FRAMES, ms / PROFILE_FRAMES
 
 
 def card_vs_cpu(dev, label: str, make, ll: np.ndarray, traceback) -> tuple:
@@ -655,6 +692,104 @@ def gathers_per_frame(search, dev, frames: int = 8) -> float:
     return gather.launches / frames
 
 
+@contextmanager
+def eager_graphs():
+    """The eager side of the graph-vs-eager A/B: every ``GraphRunner``
+    call runs its body on its buffers (the CPU path's code) instead of
+    replaying its graph.  Only this script does this, and only inside the
+    block."""
+    from asr_decoder_tpu_torch.utils.cuda_graphs import GraphRunner
+    call = GraphRunner.__call__
+    GraphRunner.__call__ = GraphRunner._eager
+    try:
+        yield
+    finally:
+        GraphRunner.__call__ = call
+
+
+def graphs_vs_eager(label: str, run, per: int, unit: str, head=None,
+                    head_per: int = 1) -> dict:
+    """``run()`` (returning a flat list of tensors) through captured graphs
+    and eagerly (``eager_graphs``) on the card: every tensor bit-identical,
+    the search kernels' launch counts equal; then ``GRAPH_PAIRS``
+    alternating pairs of wall ms per ``unit`` (``per`` of them a run), and
+    the host-issued CUDA calls per ``unit`` of each: the graph's over
+    ``run``, the eager side's over ``head()`` (``head_per`` units; a
+    profile of every eager launch of a long run costs minutes).  The
+    card's busy share of each = the graph run's device ms (the same
+    kernels either way) over its wall ms.  Prints one "graphs" line;
+    returns its numbers."""
+    from asr_decoder_tpu_torch.ops import fetch, gather
+    t_line = time.perf_counter()
+
+    def counted_run(eager: bool):
+        gather.launches = fetch.launches = 0
+        with eager_graphs() if eager else nullcontext():
+            out = [t.cpu() for t in run()]
+        return out, (gather.launches, fetch.launches)
+
+    (g, gn), (e, en) = counted_run(False), counted_run(True)
+    for a, b in zip(g, e):
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        check(torch.equal(a, b), f"graphs {label}: graph == eager, bit for "
+                                 f"bit")
+    check(gn == en, f"graphs {label}: launches graph {gn} == eager {en}")
+    ms = {"graph": [], "eager": []}
+    for i in range(GRAPH_PAIRS):
+        for name in ("graph", "eager")[::1 if i % 2 == 0 else -1]:
+            with eager_graphs() if name == "eager" else nullcontext():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3 / per)
+    _, dev_ms, calls = profile_cuda(run)
+    with eager_graphs():
+        _, eager_dev_ms, eager_calls = profile_cuda(head or run)
+    rec = {"launches": {"gather": gn[0], "fetch": gn[1]},
+           "device_ms": dev_ms / per}
+    for name, c in (("graph", calls / per),
+                    ("eager", eager_calls / (head_per if head else per))):
+        med = float(np.median(ms[name]))
+        rec[name] = dict(ms=med, ms_range=(min(ms[name]), max(ms[name])),
+                         calls=c, busy=rec["device_ms"] / med)
+    gr, ea = rec["graph"], rec["eager"]
+    wins = sum(a < b for a, b in zip(ms["graph"], ms["eager"]))
+    print(f"graphs {label}: graph == eager bit for bit, launches equal "
+          f"(gather {gn[0]}, fetch {gn[1]}); ms/{unit} graph "
+          f"{gr['ms']:.3f} [{gr['ms_range'][0]:.3f}, "
+          f"{gr['ms_range'][1]:.3f}] vs eager {ea['ms']:.3f} "
+          f"[{ea['ms_range'][0]:.3f}, {ea['ms_range'][1]:.3f}] in "
+          f"{GRAPH_PAIRS} alternating pairs (graph faster in {wins}); host "
+          f"CUDA calls/{unit} {gr['calls']:.2f} vs {ea['calls']:.1f}"
+          f"{f' (eager over {head_per} {unit}s)' if head else ''}; device "
+          f"ms/{unit} {rec['device_ms']:.3f} (eager over the same {unit}s "
+          f"{eager_dev_ms / (head_per if head else per):.3f}); card busy "
+          f"{100 * gr['busy']:.1f}% vs {100 * ea['busy']:.1f}%; "
+          f"{time.perf_counter() - t_line:.1f} s")
+    return rec
+
+
+def graph_search(search, dev, label: str) -> dict:
+    """``graphs_vs_eager`` of ``search.advance`` over ``GRAPH_FRAMES``
+    frames of fixed loglikes with a dead frame and a partly masked row:
+    the new beam, logs and snapshots."""
+    B = BATCH
+    ll = torch.from_numpy(fixed_loglikes(GRAPH_FRAMES, seed=4)).to(dev)
+    mask = np.ones((B, GRAPH_FRAMES), bool)
+    mask[:, GRAPH_DEAD] = False
+    mask[GRAPH_ROW, GRAPH_ROW_LEN:] = False
+    state, _ = search.init_state(B)
+
+    def run(frames: int = GRAPH_FRAMES):
+        new, logs = search.advance(state, ll[:, :frames], mask[:, :frames])
+        return [*new, *logs]
+    return graphs_vs_eager(label, run, GRAPH_FRAMES, "frame",
+                           head=lambda: run(PROFILE_FRAMES),
+                           head_per=PROFILE_FRAMES)
+
+
 def phase_search(dev, fst, i2p, frames: int = FRAMES, **engine) -> dict:
     """One search config (``SEARCH`` with ``engine`` over it) on the card
     and on the CPU, bit-identical; returns the kernel launches of the card
@@ -669,6 +804,8 @@ def phase_search(dev, fst, i2p, frames: int = FRAMES, **engine) -> dict:
         fixed_loglikes(frames), lambda s, *out: s.traceback(*out, fst))
     live = (gout[0].tok_state >= 0).sum(1).float().mean().item()
     rec["gather_per_frame"] = gathers_per_frame(g, dev)
+    rec["graphs"] = graph_search(
+        g, dev, "v3" if g.lanes else f"v2 {g.mode}")
     what = (f"v3, {g.lanes}-lane records" if g.lanes
             else f"v2 {g.mode}, {g.num_stages} stages")
     print(f"search card == CPU ({g.relax_impl}, {g.mode}): {what} over "
@@ -709,6 +846,37 @@ def phase_am(dev, nnet) -> None:
     print(f"am: flagship [{BATCH},{3 * FRAMES},{FEAT_DIM}] -> "
           f"{tuple(yg.shape)}: card {tg:.3f} s, CPU {tc:.3f} s, max abs "
           f"err {err:.3e} (tolerance {AM_ATOL})")
+    graph_am(dev, nnet.to(dev))
+
+
+def graph_am(dev, nnet) -> dict:
+    """``graphs_vs_eager`` of the AM chunk as ``OnlineDecoderInfo.score``
+    runs it (``GraphedAm`` over the layers after the splice, which the
+    feature buffer applies; ``AmConfig(skip=SKIP)``'s flags): one
+    [BATCH, AM_CHUNK, 3·FEAT_DIM] chunk from a mid-stream carry, the
+    log-likelihoods and the new carries."""
+    from asr_decoder_tpu_torch.models.nnet import AmConfig, GraphedAm
+    ac = AmConfig(skip=SKIP)
+    flags = dict(do_softmax=ac.do_softmax, do_log=ac.do_log,
+                 sub_prior=ac.sub_prior, block_pdf_pdfid=ac.block_pdf_pdfid,
+                 block_scale=ac.block_scale, skip_block=ac.skip_block,
+                 skip=0, skip_copy=False)
+    layers = list(nnet.layers)[1:]
+    am = GraphedAm(layers)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal(
+        (BATCH, AM_CHUNK, layers[0].input_dim)).astype(np.float32)).to(dev)
+    state = [{k: torch.from_numpy(rng.standard_normal(tuple(v.shape))
+                                  .astype(np.float32) * 0.1).to(dev)
+              for k, v in st.items()}
+             for st in (l.init_state(BATCH, dev) for l in layers)]
+
+    @torch.inference_mode()
+    def run():
+        y, new = am(x, state, **flags)
+        return [y, *(v for st in new for v in st.values())]
+    return graphs_vs_eager(f"am [{BATCH},{AM_CHUNK},{layers[0].input_dim}]",
+                           run, 1, "chunk")
 
 
 # ----------------------------------------------------------------------
@@ -1156,6 +1324,7 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
             g, i2p, cpu_cfg, device=d),
         ll, lambda s, *out: s.traceback(*out))
     check(rec["launches"]["gather"] > 0, "gather kernel launched by clg")
+    rec["graphs"] = graph_search(info.search, dev, "clg")
     print(f"graph types: clg card == CPU: logs bit-identical, words and "
           f"costs equal for {len(gres)} utterances (reached final: "
           f"{sum(r['reached_final'] for r in gres)}, words in utt 0: "
@@ -1198,6 +1367,7 @@ def phase_graph_types(dev, nnet, fst, i2p) -> dict:
             dfst, i2p, difflm(d), cfg, device=d),
         ll, lambda s_, *out: s_.traceback(*out, fst))
     check(rec["launches"]["gather"] > 0, "gather kernel launched by biglm")
+    rec["graphs"] = graph_search(s, dev, "biglm-hclg")
     ovf = gout[2].overflow
     print(f"graph types: biglm card == CPU: logs, LM lanes and overflow "
           f"flags bit-identical, words and costs equal for {len(gres)} "
@@ -1268,23 +1438,6 @@ def run_segments(session, wave, cuts) -> tuple[list, list]:
             if ep:
                 session.init_decoding()
     return flags, segs
-
-
-def profile_cuda(fn) -> tuple[int, float]:
-    """(CUDA kernels, memsets and copies included, and their device ms) of
-    one call of ``fn``, from ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from asr_decoder_tpu_torch.tools.perf.profile_production import \
-        _device_us
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ops = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    return sum(e.count for e in ops), sum(_device_us(e) for e in ops) / 1e3
 
 
 def vad_info(dev, fst, i2p):
@@ -1414,9 +1567,10 @@ def pitch_card_vs_cpu(dev, streams) -> dict:
     loglag = np.log(lags)
     trans = torch.from_numpy((cfg.penalty_factor * (
         loglag[:, None] - loglag[None, :]) ** 2).astype(np.float32)).to(dev)
-    viterbi, vms = profile_cuda(lambda: P._viterbi_track(1.0 - nccf, trans))
-    push, pms = profile_cuda(lambda: P.compute_and_process_pitch(cfg, pcfg,
-                                                                 wave))
+    viterbi, vms, _ = profile_cuda(
+        lambda: P._viterbi_track(1.0 - nccf, trans))
+    push, pms, _ = profile_cuda(
+        lambda: P.compute_and_process_pitch(cfg, pcfg, wave))
     T = nccf.shape[1]
     print(f"vad pitch: card == CPU over {CPU_STREAMS} streams of 2 s in "
           f"their pushes (max abs err {err:.2e}, tolerance {PITCH_TOL}), "
