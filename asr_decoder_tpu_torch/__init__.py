@@ -29,9 +29,10 @@ Ported (module for module):
                                  pack_nonblank_frames (CTC blank-frame
                                  packing), from/to_numpy_layers
   models/flagship.py           — make_flagship and the CTC training step
-                                 (flagship_logits, ctc_loss_fn,
-                                 ctc_train_step, init_opt_state: F.ctc_loss
-                                 and torch.optim.Adam, with backward)
+                                 (flagship_logits, ctc_loss — optax's, op
+                                 for op — ctc_loss_fn, ctc_train_step,
+                                 init_opt_state: torch.optim.Adam; on the
+                                 card one captured CUDA graph a step)
   eval/harness.py              — train_ctc_model and evaluate_wer on one
                                  device (WER, RTF, gold-decoder parity)
   frontend/fbank.py            — fbank, streaming fbank, live/utterance CMVN

@@ -25,7 +25,7 @@ from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.models.flagship import (ctc_train_step,
                                                    init_opt_state,
                                                    make_flagship)
-from asr_decoder_tpu_torch.models.nnet import Nnet, am_forward
+from asr_decoder_tpu_torch.models.nnet import GraphedAm, Nnet
 from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
 from asr_decoder_tpu_torch.utils.wer import WerStats, score_pair
 
@@ -99,10 +99,12 @@ def evaluate_wer(task: SynthTask, nnet: Nnet, *, num_utts: int = 64,
     """Decode a held-out set through the device beam search; score WER
     against the sampled transcripts; optionally gold-decode the first
     ``check_gold`` utterances on host and score them identically (device
-    WER must equal gold WER — the parity axis)."""
+    WER must equal gold WER — the parity axis).  The AM runs as the
+    serving AM does (``GraphedAm``: one captured graph a batch shape on
+    the card)."""
     device = torch.device(device)
     nnet = nnet.to(device)
-    layers = nnet.layers
+    am = GraphedAm(nnet.layers)
     fst, i2p = build_ctc_decode_graph(task.lexicon, task.word_costs,
                                       task.num_phones)
     config = config or DecoderConfig(beam=16.0, beam_width=2048,
@@ -128,9 +130,8 @@ def evaluate_wer(task: SynthTask, nnet: Nnet, *, num_utts: int = 64,
 
     @torch.inference_mode()
     def forward(feats: np.ndarray) -> torch.Tensor:
-        lls, _ = am_forward(layers, torch.from_numpy(feats).to(device),
-                            state0, do_softmax=True, do_log=True,
-                            sub_prior=False)
+        lls, _ = am(torch.from_numpy(feats).to(device), state0,
+                    do_softmax=True, do_log=True, sub_prior=False)
         return lls
 
     # warmup: first use builds the kernels and fills the allocator (RTF

@@ -18,7 +18,9 @@ import torch
 from torch import nn
 
 from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
-from asr_decoder_tpu_torch.utils.cuda_graphs import GraphRunner
+from asr_decoder_tpu_torch.utils.cuda_graphs import (GraphRunner, copy_into,
+                                                     static_buffers,
+                                                     static_key)
 from asr_decoder_tpu_torch.models.layers import (ID_KINDS, KIND_IDS, Layer,
                                                  make_layer)
 
@@ -249,8 +251,9 @@ def am_forward(layers, x: torch.Tensor, state, *, do_softmax=True,
 
 class GraphedAm:
     """``am_forward`` over one layer list, one captured CUDA graph for each
-    static key (``utils/cuda_graphs.py``): the input's shape and device,
-    the streaming state's shapes and the keyword flags — as the JAX AM is
+    static key (``utils/cuda_graphs.py``): the device, the shapes and
+    dtypes of the input and the streaming state, and the keyword flags —
+    as the JAX AM is
     jitted by shapes and static arguments.  The input and the carries go
     in through the runner's static buffers; the log-likelihoods and the new
     state come out as fresh tensors, so nothing a caller keeps is
@@ -262,28 +265,20 @@ class GraphedAm:
         self._runners: dict = {}
 
     def _runner(self, x, state, flags) -> GraphRunner:
-        key = (tuple(x.shape), str(x.device),
-               tuple(tuple((k, tuple(v.shape)) for k, v in st.items())
-                     for st in state),
+        key = (str(x.device), static_key((x, state)),
                tuple(sorted(flags.items())))
         run = self._runners.get(key)
         if run is None:
-            bufs = (torch.empty_like(x),
-                    [{k: torch.empty_like(v) for k, v in st.items()}
-                     for st in state])
             layers = self.layers    # not self: no cycle keeps a dropped AM
             run = self._runners[key] = GraphRunner(
-                lambda b: am_forward(layers, *b, **flags), bufs, x.device)
+                lambda b: am_forward(layers, *b, **flags),
+                static_buffers((x, state), x.device), x.device)
         return run
 
     def __call__(self, x: torch.Tensor, state, **flags):
         run = self._runner(x, state, flags)
         with run.lock:
-            xs, ss = run.buffers
-            xs.copy_(x)
-            for buf, st in zip(ss, state):
-                for k, v in st.items():
-                    buf[k].copy_(v)
+            copy_into(run.buffers, (x, state))
             y, new = run()
             return y.clone(), [{k: v.clone() for k, v in st.items()}
                                for st in new]

@@ -22,8 +22,21 @@ overwrites — a caller that keeps a result clones it.
   * On the CPU, which only tests and ``--device cpu`` ask for, every call
     runs the callable on the same static buffers, so the CPU tests
     exercise the buffer handling that the card replays.
-  * A runner refuses to run with autograd on (a graph records no
-    backward): training stays eager.
+  * A ``GraphRunner`` serves inference and refuses to run with autograd
+    on: its body builds no backward.  A ``TrainingGraphRunner`` runs a
+    body that calls its own ``backward()`` and optimizer step (the CTC
+    training step), with autograd on: its first call is the real first
+    step, run eagerly on a side stream (the warm-up of PyTorch's
+    whole-network capture recipe; it also creates the optimizer's state),
+    then the capture records the forward, the backward and the update.
+    Gradients made under ``zero_grad(set_to_none=True)`` inside the
+    capture live in the graph's memory pool: the runner copies the first
+    step's gradients into them, and every replay rewrites them.
+
+An owner keys its runners with ``static_key`` of the inputs, makes the
+runner's buffers with ``static_buffers`` and fills them with ``copy_into``:
+one copy call for each dtype (``torch._foreach_copy_``), so a replay costs
+the host a few calls.
 
 Launch counters.  The kernel wrappers (``ops/gather.py``, ``ops/fetch.py``)
 count their launches in Python, which a capture runs once and a replay
@@ -97,9 +110,12 @@ class GraphRunner:
 
     def __call__(self):
         if torch.is_grad_enabled():
-            raise RuntimeError("a captured graph records no backward: run "
+            raise RuntimeError("an inference graph records no backward: run "
                                "it under torch.inference_mode() or "
                                "torch.no_grad()")
+        return self._run()
+
+    def _run(self):
         if self.device.type != "cuda":
             return self._eager()
         if self.graph is None:
@@ -113,13 +129,96 @@ class GraphRunner:
         card, the eager side of ``chip_smoke.py``'s graph-vs-eager A/B)."""
         return self.body(self.buffers)
 
+    def _first_call(self):
+        return self._eager()
+
     def _capture(self):
         """The first call: run eagerly, then capture (``torch.cuda.graph``
         waits for the eager run and captures on a stream of its own)."""
         with torch.cuda.device(self.device):
-            out = self._eager()
+            out = self._first_call()
             graph = torch.cuda.CUDAGraph()
             with self.counts.capture(), torch.cuda.graph(graph):
                 self._outputs = self.body(self.buffers)
         self.graph = graph
         return out
+
+
+class TrainingGraphRunner(GraphRunner):
+    """``body(buffers)`` that runs its own backward and optimizer step over
+    ``params``, one captured CUDA graph on ``device`` (module docstring).
+    It runs with autograd on; its optimizer must be ``capturable`` on the
+    card (a capture of a non-capturable ``torch.optim.Adam`` raises)."""
+
+    def __init__(self, body, buffers, device: torch.device, params: list):
+        super().__init__(body, buffers, device)
+        self.params = params
+
+    def __call__(self):
+        with torch.enable_grad():
+            return self._run()
+
+    def _first_call(self):
+        """The real first step, on a side stream (the warm-up of PyTorch's
+        whole-network capture recipe)."""
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self._eager()
+        current.wait_stream(side)
+        self._first_grads = [p.grad for p in self.params]
+        for t in [out, *self._first_grads]:
+            if t is not None:
+                t.record_stream(current)
+        return out
+
+    def _capture(self):
+        """The first step and the capture, which leaves each ``.grad`` a
+        buffer of the graph's pool that nothing has written: the first
+        step's gradients go into them."""
+        out = super()._capture()
+        pairs = [(p.grad, g) for p, g in zip(self.params, self._first_grads)
+                 if g is not None]
+        copy_into([d for d, _ in pairs], [g for _, g in pairs])
+        self._first_grads = None
+        return out
+
+
+def static_key(inputs) -> tuple:
+    """The nest of tensors, lists, tuples and dicts ``inputs`` as a hashable
+    key: its structure, dict keys, and each tensor's shape and dtype."""
+    if isinstance(inputs, torch.Tensor):
+        return tuple(inputs.shape), inputs.dtype
+    if isinstance(inputs, dict):
+        return tuple((k, static_key(v)) for k, v in inputs.items())
+    return tuple(static_key(v) for v in inputs)
+
+
+def static_buffers(inputs, device: torch.device):
+    """Empty tensors of the shapes and dtypes of ``inputs`` on ``device``,
+    in the same nest."""
+    if isinstance(inputs, torch.Tensor):
+        return torch.empty(inputs.shape, dtype=inputs.dtype, device=device)
+    if isinstance(inputs, dict):
+        return {k: static_buffers(v, device) for k, v in inputs.items()}
+    return type(inputs)(static_buffers(v, device) for v in inputs)
+
+
+def _leaves(inputs) -> list:
+    if isinstance(inputs, torch.Tensor):
+        return [inputs]
+    values = inputs.values() if isinstance(inputs, dict) else inputs
+    return [t for v in values for t in _leaves(v)]
+
+
+def copy_into(dst, src) -> None:
+    """``d.copy_(s)`` for each pair of tensors of the two nests (of one
+    structure), one ``torch._foreach_copy_`` call for each dtype."""
+    groups: dict = {}
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        ds, ss = groups.setdefault(d.dtype, ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)

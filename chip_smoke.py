@@ -103,9 +103,21 @@ sources in this checkout, then:
      ``PROD_ROWS`` rows, packed against unpacked words; the realistic
      point, its first ``PROD_ROWS`` rows held to a CPU search; the eval
      tool at its quick size trained and decoded on the card (no gold
-     mismatch, WER under ``EVAL_WER``); ``TRAIN_STEPS`` CTC training steps
-     of the full-width flagship on the card and on the CPU from the same
-     weights, each loss within ``TRAIN_RTOL``.  Both search kernels must
+     mismatch, WER under ``EVAL_WER``; its training steps are graph
+     replays, and its AM, ``GraphedAm``, is held bit for bit to an eager
+     rerun of the same decode); ``TRAIN_STEPS`` CTC training steps of the
+     full-width flagship on the card and on the CPU from the same weights,
+     each loss within ``TRAIN_RTOL``, then two steps at ``INFEASIBLE_T``
+     frames whose second batch holds a row whose labels cannot fit its
+     frames (its card loss, a replay, finite and within ``TRAIN_RTOL`` of
+     the CPU's); a "graphs train" line: three flagships from one seed,
+     one stepped through the captured training graph and two eagerly
+     (``eager_graphs``) on the same ``TRAIN_GRAPH_BATCHES`` batches, the
+     graph's losses and parameters after every step as close to the first
+     eager model's as the second eager model's are (bit for bit where those
+     two are), the search kernels' counters unmoved, ms a step in
+     alternating pairs, host calls, device ms, the card's busy share and
+     the CTC loss's share of the step's device time.  Both search kernels must
      launch at each of the three points and in the eval run, and after
      each of those runs both are held bit-exactly to their plain versions
      at every shape that run launched them at (the wrappers record the
@@ -241,6 +253,9 @@ OFFLINE_ROWS, PROD_ROWS = 8, 4     # rows held to the CPU
 EVAL_STEPS, EVAL_WER = 600, 0.2    # the eval tool's quick task
 TRAIN_STEPS, TRAIN_B, TRAIN_T, TRAIN_L = 3, 16, 96, 24
 TRAIN_RTOL = 1e-3                  # card loss against CPU loss, relative
+INFEASIBLE_T = 16                  # frames of the batch whose row 0 holds
+                                   # TRAIN_L > INFEASIBLE_T labels
+TRAIN_GRAPH_BATCHES = 11           # the first captures; then GRAPH_PAIRS pairs
 # phase 10, multi-device on one card and the native host paths
 DP_MESHES = (2, 4)                 # dp sizes of the dp decode (["cuda:0"]*dp)
 NATIVE_UTTS, NBEST_N = 4, 10       # phase 6 utterances held native == Python
@@ -699,12 +714,12 @@ def eager_graphs():
     replaying its graph.  Only this script does this, and only inside the
     block."""
     from asr_decoder_tpu_torch.utils.cuda_graphs import GraphRunner
-    call = GraphRunner.__call__
-    GraphRunner.__call__ = GraphRunner._eager
+    run = GraphRunner._run
+    GraphRunner._run = GraphRunner._eager
     try:
         yield
     finally:
-        GraphRunner.__call__ = call
+        GraphRunner._run = run
 
 
 def graphs_vs_eager(label: str, run, per: int, unit: str, head=None,
@@ -1920,74 +1935,221 @@ def offline_realistic(dev) -> dict:
 
 
 def offline_eval(dev) -> dict:
+    """The eval tool at its quick size on the card; then the decode it
+    ran (``evaluate_wer``, kept from the tool's call) again with every
+    runner's body called eagerly: the AM's log-likelihoods of the kept
+    utterances bit for bit, words and errors equal, ``am_seconds`` of
+    each."""
+    from asr_decoder_tpu_torch.eval import harness
     from asr_decoder_tpu_torch.tools import eval as eval_tool
-    out, n = counted(lambda: eval_tool.run(quick=True, steps=EVAL_STEPS,
-                                           device=dev), "offline eval")
+    real, calls = harness.evaluate_wer, []
+
+    def keep(task, nnet, **kw):         # the tool's call, for the rerun
+        calls.append((task, nnet, kw, real(task, nnet, **kw)))
+        return calls[-1][-1]
+    harness.evaluate_wer = keep
+    try:
+        out, n = counted(lambda: eval_tool.run(quick=True, steps=EVAL_STEPS,
+                                               device=dev), "offline eval")
+    finally:
+        harness.evaluate_wer = real
     d = out["detail"]
     check(d["gold_mismatches"] == 0 and d["gold_checked"] > 0,
           f"eval: device search == gold decoder ({d['gold_mismatches']} "
           f"mismatches)")
     check(out["value"] < EVAL_WER, f"eval: WER {out['value']} < {EVAL_WER}")
+    ((task, nnet, kw, res),) = calls
+    with eager_graphs():
+        eager = real(task, nnet, **kw)
+    check(len(res.samples) == len(eager.samples) > 0 and all(
+        np.array_equal(a[0].view(np.int32), b[0].view(np.int32))
+        and a[1:] == b[1:] for a, b in zip(res.samples, eager.samples))
+        and res.wer.errors == eager.wer.errors,
+        "eval: the AM and the search graph == eager, bit for bit")
     print(f"offline eval: quick task trained {d['train_steps']} steps on "
           f"the card in {d['train_s']} s ({d['train_steps_per_s']} "
-          f"steps/s), ctc loss {d['ctc_loss']}; {d['utts']} utterances "
-          f"decoded at effective K {d['operating_point']['effective_K']}: "
-          f"WER {out['value']}, gold mismatches {d['gold_mismatches']} of "
-          f"{d['gold_checked']}, RTF {d['rtf']}; kernel launches gather "
-          f"{n['gather']} fetch {n['fetch']}")
+          f"steps/s, one graph replay a step), ctc loss {d['ctc_loss']}; "
+          f"{d['utts']} utterances decoded at effective K "
+          f"{d['operating_point']['effective_K']}: WER {out['value']}, gold "
+          f"mismatches {d['gold_mismatches']} of {d['gold_checked']}, RTF "
+          f"{d['rtf']}; the AM (GraphedAm) == eager bit for bit on "
+          f"{len(res.samples)} utterances, am_seconds graph "
+          f"{res.am_seconds:.4f} vs eager {eager.am_seconds:.4f}; kernel "
+          f"launches gather {n['gather']} fetch {n['fetch']}")
     n["max_abs_err"] = hold_launched_shapes(dev, n, "offline eval")
     return n
 
 
-def offline_train(dev) -> None:
-    """``TRAIN_STEPS`` CTC steps of the full-width flagship on the card and
-    on the CPU from the same weights and batches: each loss within
-    ``TRAIN_RTOL``; ms and kernels per step on the card."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from asr_decoder_tpu_torch.models.flagship import (ctc_train_step,
-                                                       init_opt_state,
-                                                       make_flagship)
-    rng = np.random.default_rng(21)
+def train_batches(rng, n: int, T: int = TRAIN_T) -> list:
+    """``n`` full-width CTC batches of ``TRAIN_B`` rows and ``T`` frames:
+    8 to ``TRAIN_L`` labels a row, zero-padded."""
     batches = []
-    for _ in range(TRAIN_STEPS + 1):
-        x = rng.standard_normal((TRAIN_B, TRAIN_T, FEAT_DIM)).astype(
-            np.float32)
+    for _ in range(n):
+        x = rng.standard_normal((TRAIN_B, T, FEAT_DIM)).astype(np.float32)
         lens = rng.integers(8, TRAIN_L + 1, TRAIN_B)
         labels = rng.integers(1, NUM_PDFS, (TRAIN_B, TRAIN_L))
         pads = (np.arange(TRAIN_L)[None, :] >= lens[:, None]).astype(
             np.float32)
         batches.append((x, (labels * (1 - pads)).astype(np.int32), pads))
+    return batches
+
+
+def train_card_vs_cpu(dev, batches: list, label: str) -> tuple:
+    """The full-width flagship (seed 5) stepped on ``batches`` on the card
+    and on the CPU from the same weights: each loss finite and within
+    ``TRAIN_RTOL``, the card's parameters finite.  Returns (card losses,
+    CPU losses, card ms a step, the card model, its optimizer, state)."""
+    from asr_decoder_tpu_torch.models.flagship import (ctc_train_step,
+                                                       init_opt_state,
+                                                       make_flagship)
     losses, ms = {}, []
     for d in (dev, torch.device("cpu")):
         net = make_flagship(5, feat_dim=FEAT_DIM, num_pdfs=NUM_PDFS,
                             device=d)
         opt = init_opt_state(net, 1e-3)
         state = net.init_state(TRAIN_B, d)
-        tens = [tuple(torch.from_numpy(a).to(d) for a in b) for b in batches]
         out = []
-        for b in tens[:TRAIN_STEPS]:
+        for b in batches:
             t0 = time.perf_counter()
-            out.append(float(ctc_train_step(net, opt, *b, state)))
+            out.append(float(ctc_train_step(
+                net, opt, *(torch.from_numpy(a).to(d) for a in b), state)))
             if d == dev:
                 ms.append((time.perf_counter() - t0) * 1e3)
         losses["card" if d == dev else "cpu"] = out
-        if d == dev:          # one more step under the profiler: its kernels
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                ctc_train_step(net, opt, *tens[TRAIN_STEPS], state)
-                torch.cuda.synchronize()
-            kernels = sum(e.count for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA
-                          and not getattr(e, "is_user_annotation", False))
+        if d == dev:
+            card = (net, opt, state)
     for g, c in zip(losses["card"], losses["cpu"]):
         check(np.isfinite(g) and abs(g - c) <= TRAIN_RTOL * abs(c),
-              f"train: card loss {g} vs CPU loss {c} within {TRAIN_RTOL}")
+              f"{label}: card loss {g} vs CPU loss {c} within {TRAIN_RTOL}")
+    check(all(bool(torch.isfinite(p).all()) for p in card[0].parameters()),
+          f"{label}: card parameters finite")
+    return losses["card"], losses["cpu"], ms, *card
+
+
+def offline_train(dev) -> None:
+    """``TRAIN_STEPS`` CTC steps of the full-width flagship on the card
+    (the first runs eagerly and captures, the rest replay) and on the CPU
+    from the same weights and batches: each loss within ``TRAIN_RTOL``;
+    ms a step and kernels of a replayed step on the card.  Then two steps
+    at ``INFEASIBLE_T`` frames, the second batch's row 0 holding
+    ``TRAIN_L`` labels: the card's replayed loss finite and within
+    ``TRAIN_RTOL`` of the CPU's."""
+    from asr_decoder_tpu_torch.models.flagship import ctc_train_step
+    rng = np.random.default_rng(21)
+    batches = train_batches(rng, TRAIN_STEPS + 1)
+    card, cpu, ms, net, opt, state = train_card_vs_cpu(
+        dev, batches[:TRAIN_STEPS], "train")
+    b = [torch.from_numpy(a).to(dev) for a in batches[TRAIN_STEPS]]
+    kernels, _, calls = profile_cuda(
+        lambda: ctc_train_step(net, opt, *b, state))
     print(f"offline train: flagship 1024/512/3, {NUM_PDFS} pdfs, "
-          f"B={TRAIN_B} T={TRAIN_T}: losses card {losses['card']} == CPU "
-          f"{losses['cpu']} within {TRAIN_RTOL} relative; card ms per step "
-          f"{[round(m, 1) for m in ms]} (the first builds the autograd "
-          f"path), {kernels} kernels a step")
+          f"B={TRAIN_B} T={TRAIN_T}: losses card {card} == CPU {cpu} within "
+          f"{TRAIN_RTOL} relative; card ms per step "
+          f"{[round(m, 1) for m in ms]} (the first runs eagerly and "
+          f"captures), {kernels} kernels and {calls} host CUDA calls a "
+          f"replayed step")
+    feasible, infeasible = train_batches(rng, 2, INFEASIBLE_T)
+    infeasible[1][0] = rng.integers(1, NUM_PDFS, TRAIN_L)
+    infeasible[2][0] = 0.0
+    card, cpu, _, *_ = train_card_vs_cpu(dev, [feasible, infeasible],
+                                         "train infeasible")
+    print(f"offline train infeasible: B={TRAIN_B} T={INFEASIBLE_T}, row 0 "
+          f"of the second batch {TRAIN_L} labels: losses card {card} == "
+          f"CPU {cpu} within {TRAIN_RTOL} relative (the second a replay), "
+          f"parameters finite")
+
+
+def graph_train(dev) -> None:
+    """The "graphs train" line (module docstring, phase 9)."""
+    from asr_decoder_tpu_torch.models.flagship import (ctc_loss,
+                                                       ctc_train_step,
+                                                       flagship_logits,
+                                                       init_opt_state,
+                                                       make_flagship)
+    from asr_decoder_tpu_torch.ops import fetch, gather
+    t_line = time.perf_counter()
+    batches = [[torch.from_numpy(a).to(dev) for a in b] for b in
+               train_batches(np.random.default_rng(22), TRAIN_GRAPH_BATCHES)]
+    names = ("graph", "eager", "eager2")
+    nets = {k: make_flagship(5, feat_dim=FEAT_DIM, num_pdfs=NUM_PDFS,
+                             device=dev) for k in names}
+    opts = {k: init_opt_state(nets[k], 1e-3) for k in names}
+    state = nets["graph"].init_state(TRAIN_B, dev)
+
+    def step(name: str, b) -> tuple:
+        with nullcontext() if name == "graph" else eager_graphs():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = ctc_train_step(nets[name], opts[name], *b, state)
+            torch.cuda.synchronize()
+        return loss, (time.perf_counter() - t0) * 1e3
+
+    @torch.no_grad()
+    def apart(a: str, b: str, losses: dict) -> tuple[bool, float]:
+        pairs = [(losses[a], losses[b]), *zip(nets[a].parameters(),
+                                               nets[b].parameters())]
+        return (all(torch.equal(x, y) for x, y in pairs),
+                max(float((x - y).abs().max()) for x, y in pairs))
+
+    before = (gather.launches, fetch.launches)
+    ms = {"graph": [], "eager": []}
+    bitwise = eager_bitwise = 0
+    worst = {"graph": 0.0, "eager2": 0.0}
+    graph_losses = []
+    for i, b in enumerate(batches):
+        losses = {}
+        for name in ("graph", "eager")[::1 if i % 2 == 0 else -1]:
+            losses[name], t = step(name, b)
+            if i:
+                ms[name].append(t)
+        losses["eager2"], _ = step("eager2", b)
+        graph_losses.append(float(losses["graph"]))
+        check(np.isfinite(graph_losses[-1]),
+              f"graphs train: step {i} loss finite")
+        g_same, g_err = apart("graph", "eager", losses)
+        e_same, e_err = apart("eager2", "eager", losses)
+        check(g_same if e_same else g_err <= e_err,
+              f"graphs train step {i}: graph {g_err} from eager, no further "
+              f"than eager from eager {e_err} (bit for bit where eager is)")
+        bitwise += g_same
+        eager_bitwise += e_same
+        worst = {"graph": max(worst["graph"], g_err),
+                 "eager2": max(worst["eager2"], e_err)}
+    check((gather.launches, fetch.launches) == before,
+          "graphs train: the search kernels' counters unmoved")
+    b = batches[0]
+    _, dev_ms, calls = profile_cuda(
+        lambda: ctc_train_step(nets["graph"], opts["graph"], *b, state))
+    with eager_graphs():
+        kernels, eager_dev_ms, eager_calls = profile_cuda(
+            lambda: ctc_train_step(nets["eager"], opts["eager"], *b, state))
+    with torch.no_grad():
+        logits = flagship_logits(nets["eager"].layers, b[0], state)[0]
+    logits.requires_grad_(True)
+
+    def loss_alone():
+        with torch.enable_grad():
+            ctc_loss(logits, b[1], b[2]).mean().backward()
+    loss_kernels, loss_ms, _ = profile_cuda(loss_alone)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    wins = sum(a < e for a, e in zip(ms["graph"], ms["eager"]))
+    n = len(batches)
+    print(f"graphs train: flagship 1024/512/3 B={TRAIN_B} T={TRAIN_T}, {n} "
+          f"steps: graph == eager bit for bit at {bitwise}/{n} steps (eager "
+          f"== eager at {eager_bitwise}/{n}; max abs apart graph "
+          f"{worst['graph']:.3e}, eager {worst['eager2']:.3e}), loss "
+          f"{graph_losses[0]:.4f} -> {graph_losses[-1]:.4f}; search kernel "
+          f"counters unmoved; ms/step graph {med['graph']:.3f} "
+          f"[{min(ms['graph']):.3f}, {max(ms['graph']):.3f}] vs eager "
+          f"{med['eager']:.3f} [{min(ms['eager']):.3f}, "
+          f"{max(ms['eager']):.3f}] in {len(ms['graph'])} alternating pairs "
+          f"(graph faster in {wins}); host CUDA calls/step {calls} vs "
+          f"{eager_calls}; device ms/step {dev_ms:.3f} vs {eager_dev_ms:.3f} "
+          f"({kernels} kernels); card busy {100 * dev_ms / med['graph']:.1f}%"
+          f" vs {100 * eager_dev_ms / med['eager']:.1f}%; the CTC loss "
+          f"(forward and backward, {loss_kernels} kernels) {loss_ms:.3f} "
+          f"device ms = {100 * loss_ms / eager_dev_ms:.1f}% of the step; "
+          f"{time.perf_counter() - t_line:.1f} s")
 
 
 def phase_offline(dev, tlg_proc: subprocess.Popen) -> dict:
@@ -2002,6 +2164,7 @@ def phase_offline(dev, tlg_proc: subprocess.Popen) -> dict:
         torch.cuda.empty_cache()
         print(f"phase offline: at {time.perf_counter() - t0:.1f} s")
     offline_train(dev)
+    graph_train(dev)
     print(f"phase offline: {time.perf_counter() - t0:.1f} s")
     out = {k: sum(c[k] for c in counts) for k in ("gather", "fetch")}
     out["max_abs_err"] = max(c["max_abs_err"] for c in counts)

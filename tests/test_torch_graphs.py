@@ -234,8 +234,8 @@ def test_score_state_outlives_the_next_chunk():
 
 def test_runner_refuses_grad_mode_and_training_stays_eager():
     """A runner (and so ``GraphedAm``) refuses to run with autograd on;
-    ``ctc_train_step``, which needs autograd, still trains through the
-    eager ``am_forward``."""
+    ``ctc_train_step``, which needs autograd, trains through a training
+    runner, which turns it on (on the CPU its body runs eagerly)."""
     buf = torch.zeros(3)
     run = GraphRunner(lambda b: b.add_(1), buf, "cpu")
     with torch.enable_grad():

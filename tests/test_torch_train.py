@@ -2,8 +2,8 @@
 against the JAX one on the same weights, carried across with
 ``from_numpy_layers`` / ``to_numpy_layers``.
 
-Tolerances: one step's loss within 1e-4 relative (optax clamps log 0 at
--1e5 where PyTorch keeps -inf, and the two sum in different orders); every
+Tolerances: one step's loss within 1e-4 relative (the port's loss is
+optax's op for op; ``exp`` and ``log1p`` round otherwise); every
 gradient within 1e-3 relative + 1e-5 absolute, by parameter name; the
 parameters after five Adam steps within 1e-3 absolute (Adam divides by
 sqrt(v): a last-bit difference of a near-zero gradient can move one update
