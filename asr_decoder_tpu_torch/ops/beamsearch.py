@@ -46,7 +46,7 @@ from asr_decoder_tpu_torch.ops.fetch import fetch_records
 from asr_decoder_tpu_torch.ops.gather import (batched_table_gather,
                                               batched_table_gather_many)
 from asr_decoder_tpu_torch.utils.cuda_graphs import GraphRunner
-from asr_decoder_tpu_torch.utils.profiling import scope
+from asr_decoder_tpu_torch.utils.profiling import scope, span
 
 INF = float("inf")
 NO_STATE = -1
@@ -874,29 +874,33 @@ class TorchBeamSearch:
         reverse without concatenation).  ``fst_arcs``: the source StdFst
         for olabel/ilabel lookup; if None only arc ids and cost are
         returned.  The super-final token is preferred, else the best live
-        one."""
-        tok_state = _np(state.tok_state)
-        tok_cost = _np(state.tok_cost)
-        chunks = logs if isinstance(logs, list) else [logs]
-        walk = (self._walk_v3 if self.relax_impl == "topk"
-                else self._walk_v2)(chunks, init_log)
+        one.  The spans ``traceback/copy`` (the state, logs and snapshots
+        to the host, all before the walk) and ``traceback/walk`` time its
+        two parts."""
+        with span("traceback/copy"):
+            tok_state = _np(state.tok_state)
+            tok_cost = _np(state.tok_cost)
+            chunks = logs if isinstance(logs, list) else [logs]
+            walk = (self._walk_v3 if self.relax_impl == "topk"
+                    else self._walk_v2)(chunks, init_log)
         final_id = int(self.dev.final_state)
         results = []
-        for b in range(tok_state.shape[0]):
-            finals = np.where(tok_state[b] == final_id)[0]
-            if len(finals):
-                slot = int(finals[np.argmin(tok_cost[b][finals])])
-            else:
-                slot = int(np.argmin(tok_cost[b]))
-            arc_ids = walk(b, slot)[::-1]
-            res = dict(arc_ids=arc_ids, cost=float(tok_cost[b, slot]),
-                       reached_final=bool(len(finals)))
-            if fst_arcs is not None:
-                ol = fst_arcs.arc_olabel[arc_ids]
-                il = fst_arcs.arc_ilabel[arc_ids]
-                res["words"] = [int(x) for x in ol[ol != 0]]
-                res["ilabels"] = [int(x) for x in il[il != 0]]
-            results.append(res)
+        with span("traceback/walk"):
+            for b in range(tok_state.shape[0]):
+                finals = np.where(tok_state[b] == final_id)[0]
+                if len(finals):
+                    slot = int(finals[np.argmin(tok_cost[b][finals])])
+                else:
+                    slot = int(np.argmin(tok_cost[b]))
+                arc_ids = walk(b, slot)[::-1]
+                res = dict(arc_ids=arc_ids, cost=float(tok_cost[b, slot]),
+                           reached_final=bool(len(finals)))
+                if fst_arcs is not None:
+                    ol = fst_arcs.arc_olabel[arc_ids]
+                    il = fst_arcs.arc_ilabel[arc_ids]
+                    res["words"] = [int(x) for x in ol[ol != 0]]
+                    res["ilabels"] = [int(x) for x in il[il != 0]]
+                results.append(res)
         return results
 
     def _decode_stage_arcs(self, stage: int, a: int) -> list[int]:

@@ -58,6 +58,7 @@ from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    to_host,
                                                    trailing_silence,
                                                    word_alignment)
+from asr_decoder_tpu_torch.utils import profiling
 
 
 def _channel_rows(a: np.ndarray, cid: int, frames: int | None = None
@@ -174,12 +175,22 @@ class BatchedStreamingDecoder:
     def _flush_logs(self) -> None:
         """Hand the previous tick's logs to their channels (waits for its
         device→host copy, not for later ticks)."""
-        if self._pending is None:
+        self._deliver(self._wait_logs())
+
+    def _wait_logs(self) -> tuple | None:
+        """The previous tick's pending logs, taken once their device→host
+        copy has ended (None if there are none)."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            for event in pending[3]:
+                event.synchronize()
+        return pending
+
+    def _deliver(self, pending: tuple | None) -> None:
+        """Slice a tick's host logs out to the channels it advanced."""
+        if pending is None:
             return
-        advanced, valid, host, ready = self._pending
-        self._pending = None
-        for event in ready:
-            event.synchronize()
+        advanced, valid, host, _ = pending
         host = [([t.numpy() for t in log], ll.numpy()) for log, ll in host]
         for cid in advanced:
             ch = self._channels[cid]
@@ -294,47 +305,54 @@ class BatchedStreamingDecoder:
         Returns the channel ids that advanced."""
         info = self.info
         C = info.config.chunk_frames
-        feats = np.zeros((self.B, C, self._feat_dim), np.float32)
-        valid = np.zeros(self.B, np.int32)
-        advanced: list[int] = []
-        for cid in range(self.B):
-            if not self.ready(cid):
-                continue
-            ch = self._channels[cid]
-            buf = np.concatenate(ch.pending, axis=0)
-            take, rest = buf[:C], buf[C:]
-            ch.pending = [rest] if rest.shape[0] else []
-            ch.pending_frames = rest.shape[0]
-            v = take.shape[0]
-            if v < C:
-                take = np.concatenate(
-                    [take, np.repeat(take[-1:], C - v, axis=0)], axis=0)
-            feats[cid] = take
-            valid[cid] = v
-            advanced.append(cid)
-            if ch.eos and ch.pending_frames == 0:
-                ch.drained = True
+        with profiling.span("tick/pack"):
+            feats = np.zeros((self.B, C, self._feat_dim), np.float32)
+            valid = np.zeros(self.B, np.int32)
+            advanced: list[int] = []
+            for cid in range(self.B):
+                if not self.ready(cid):
+                    continue
+                ch = self._channels[cid]
+                buf = np.concatenate(ch.pending, axis=0)
+                take, rest = buf[:C], buf[C:]
+                ch.pending = [rest] if rest.shape[0] else []
+                ch.pending_frames = rest.shape[0]
+                v = take.shape[0]
+                if v < C:
+                    take = np.concatenate(
+                        [take, np.repeat(take[-1:], C - v, axis=0)], axis=0)
+                feats[cid] = take
+                valid[cid] = v
+                advanced.append(cid)
+                if ch.eos and ch.pending_frames == 0:
+                    ch.drained = True
         if not advanced:
             return []
         host, ready = [], []
-        for blk in self._blocks:
-            rows = slice(blk.lo, blk.hi)
-            loglikes, new_am, mask = info.score(
-                torch.from_numpy(feats[rows]).to(blk.device), blk.am_state,
-                valid[rows], blk.layers)
-            # idle channels keep their LSTM carries bit-exactly
-            active = torch.from_numpy(valid[rows] > 0).to(blk.device)[:, None]
-            blk.am_state = [{k: torch.where(active, n[k], o[k]) for k in o}
-                            for n, o in zip(new_am, blk.am_state)]
-            blk.beam, log = blk.search.advance(blk.beam, loglikes, mask)
-            host.append(([t.to("cpu", non_blocking=True) for t in log],
-                         loglikes.to("cpu", non_blocking=True)))
-            if blk.device.type == "cuda":
-                ready.append(torch.cuda.Event())
-                ready[-1].record(torch.cuda.current_stream(blk.device))
+        with profiling.span("tick/launch"):
+            for blk in self._blocks:
+                rows = slice(blk.lo, blk.hi)
+                loglikes, new_am, mask = info.score(
+                    torch.from_numpy(feats[rows]).to(blk.device),
+                    blk.am_state, valid[rows], blk.layers)
+                # idle channels keep their LSTM carries bit-exactly
+                active = torch.from_numpy(valid[rows] > 0).to(
+                    blk.device)[:, None]
+                blk.am_state = [{k: torch.where(active, n[k], o[k])
+                                 for k in o}
+                                for n, o in zip(new_am, blk.am_state)]
+                blk.beam, log = blk.search.advance(blk.beam, loglikes, mask)
+                host.append(([t.to("cpu", non_blocking=True) for t in log],
+                             loglikes.to("cpu", non_blocking=True)))
+                if blk.device.type == "cuda":
+                    ready.append(torch.cuda.Event())
+                    ready[-1].record(torch.cuda.current_stream(blk.device))
         # the previous tick's copies were queued before this tick's work, so
         # waiting for them here does not wait for this tick
-        self._flush_logs()
+        with profiling.span("tick/wait"):
+            pending = self._wait_logs()
+        with profiling.span("tick/deliver"):
+            self._deliver(pending)
         self._pending = (advanced, valid, host, ready)
         return advanced
 

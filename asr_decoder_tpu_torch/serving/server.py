@@ -29,6 +29,7 @@ v1 worker's _best_result accumulation, kaldi-v1-asr-online.h:795-840).
 from __future__ import annotations
 
 import asyncio
+import itertools
 import socket as socketlib
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -38,6 +39,7 @@ from dataclasses import dataclass
 from asr_decoder_tpu_torch.serving.protocol import (C2SPackage, EndFlag,
                                                     NbestResult, S2CPackage,
                                                     frame_s2c, read_c2s)
+from asr_decoder_tpu_torch.utils import profiling
 from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.utils.logging import get_logger
 from asr_decoder_tpu_torch.serving.batcher import (BatchedStreamingDecoder,
@@ -79,7 +81,10 @@ class SocketConfig:
 
 @dataclass
 class UttStats:
-    """Per-utterance timing (ref: ThreadTimeInfo semantics)."""
+    """Per-utterance timing (ref: ThreadTimeInfo semantics): the audio
+    pushed, and the server's time on its packets (their ``request`` spans:
+    each from the packet's read to its reply's write and, after the last,
+    the channel's release)."""
     wav_seconds: float = 0.0
     work_seconds: float = 0.0
 
@@ -110,14 +115,20 @@ class AsrServer:
         self.total = UttStats()
         self.dispatches = 0       # batched device steps
         self.chunks_decoded = 0   # channel-chunks consumed across dispatches
+        self._connections = itertools.count()   # serials of the requests' req
 
-    async def _run(self, fn, *args):
+    async def _run(self, name: str, fn, *args, req=None):
+        """``fn(*args)`` on the device thread, recorded as the span
+        ``name`` (``device/<call>``) after a ``device/queue`` span from its
+        submit to its start."""
         return await asyncio.get_running_loop().run_in_executor(
-            self._pool, fn, *args)
+            self._pool, _timed, "device/queue", name, req,
+            time.perf_counter(), fn, args)
 
-    async def _run_result(self, fn, *args):
+    async def _run_result(self, fn, *args, req=None):
         return await asyncio.get_running_loop().run_in_executor(
-            self._result_pool, fn, *args)
+            self._result_pool, _timed, "results/queue", "results/build", req,
+            time.perf_counter(), fn, args)
 
     # -- lifecycle ---------------------------------------------------------
     async def start(self) -> tuple[str, int]:
@@ -154,7 +165,7 @@ class AsrServer:
             await self._work.wait()
             self._work.clear()
             while True:
-                advanced = await self._run(self._batcher.step)
+                advanced = await self._run("device/step", self._batcher.step)
                 if not advanced:
                     break
                 self.dispatches += 1
@@ -164,7 +175,7 @@ class AsrServer:
                     if ev is not None:
                         ev.set()
 
-    async def _pump(self, cid: int) -> None:
+    async def _pump(self, cid: int, req=None) -> None:
         """Block until the device loop has consumed every ready chunk of
         this channel (clear-before-check: step() completes on the same
         1-thread executor as ready(), so a set() between our check and
@@ -172,7 +183,8 @@ class AsrServer:
         ev = self._chan_events[cid]
         while True:
             ev.clear()
-            if not await self._run(self._batcher.ready, cid):
+            if not await self._run("device/ready", self._batcher.ready, cid,
+                                   req=req):
                 return
             self._work.set()
             await ev.wait()
@@ -197,6 +209,7 @@ class AsrServer:
     async def _handle(self, reader: asyncio.StreamReader,
                       writer: asyncio.StreamWriter) -> None:
         self._tune_socket(writer)
+        conn = next(self._connections)
         cid: int | None = None
         stats = UttStats()
         sr = 16000
@@ -225,47 +238,60 @@ class AsrServer:
                     # zero-length mid-stream chunk: forced-EOS repair
                     # (ref v1-asr-task.h:105-110)
                     pkg.end_flag = True
-                if cid is None or pkg.audio_head:
-                    if cid is not None:
-                        await self._close_channel(cid)
+                req = (conn, pkg.n)
+                with profiling.span("request", req) as request:
+                    if cid is None or pkg.audio_head:
+                        if cid is not None:
+                            await self._close_channel(cid, req)
+                            cid = None
+                        with profiling.span("admission"):
+                            await self._chan_sem.acquire()
+                        cid = await self._run("device/acquire",
+                                              self._batcher.acquire, req=req)
+                        self._chan_events[cid] = asyncio.Event()
+                        stats = UttStats()
+                        sr = pkg.sample_rate.hz
+                        prefix_words, prefix_align, prefix_frames = [], [], 0
+                    samples = pkg.samples()
+                    stats.wav_seconds += len(samples) / sr
+                    await self._run("device/push", self._batcher.push, cid,
+                                    samples, bool(pkg.end_flag), req=req)
+                    with profiling.span("pump"):
+                        await self._pump(cid, req)
+                    endpoint = (not pkg.end_flag and await self._run(
+                        "device/endpoint_detected",
+                        self._batcher.endpoint_detected, cid, req=req))
+                    # snapshot under the device writer, build results off it
+                    snap = await self._run("device/snapshot",
+                                           self._batcher.snapshot, cid,
+                                           req=req)
+                    reply, seg_words, seg_align = await self._run_result(
+                        self._results, snap, pkg,
+                        bool(pkg.end_flag) or endpoint, prefix_words,
+                        prefix_align, prefix_frames, req=req)
+                    with profiling.span("write"):
+                        writer.write(frame_s2c(reply))
+                        await writer.drain()
+                    if pkg.end_flag:
+                        await self._close_channel(cid, req)
                         cid = None
-                    await self._chan_sem.acquire()
-                    cid = await self._run(self._batcher.acquire)
-                    self._chan_events[cid] = asyncio.Event()
-                    stats = UttStats()
-                    sr = pkg.sample_rate.hz
-                    prefix_words, prefix_align, prefix_frames = [], [], 0
-                samples = pkg.samples()
-                stats.wav_seconds += len(samples) / sr
-                t0 = time.monotonic()
-                await self._run(self._batcher.push, cid, samples,
-                                bool(pkg.end_flag))
-                await self._pump(cid)
-                endpoint = (not pkg.end_flag and await self._run(
-                    self._batcher.endpoint_detected, cid))
-                # snapshot under the device writer, build results off it
-                snap = await self._run(self._batcher.snapshot, cid)
-                reply, seg_words, seg_align = await self._run_result(
-                    self._results, snap, pkg, bool(pkg.end_flag) or endpoint,
-                    prefix_words, prefix_align, prefix_frames)
-                stats.work_seconds += time.monotonic() - t0
-                writer.write(frame_s2c(reply))
-                await writer.drain()
+                    elif endpoint:
+                        # mid-stream endpoint: fold the finished segment
+                        # into the prefix, restart the search, keep the
+                        # stream
+                        prefix_words = prefix_words + seg_words
+                        prefix_align = prefix_align + seg_align
+                        prefix_frames += snap.frames_decoded
+                        await self._run("device/init_decoding",
+                                        self._batcher.init_decoding, cid,
+                                        req=req)
+                stats.work_seconds += request.seconds
                 if pkg.end_flag:
                     LOG.info("utt done: wav=%.2fs work=%.2fs rtf=%.4f",
                              stats.wav_seconds, stats.work_seconds,
                              stats.rtf)
                     self.total.wav_seconds += stats.wav_seconds
                     self.total.work_seconds += stats.work_seconds
-                    await self._close_channel(cid)
-                    cid = None
-                elif endpoint:
-                    # mid-stream endpoint: fold the finished segment into
-                    # the prefix, restart the search, keep the stream
-                    prefix_words = prefix_words + seg_words
-                    prefix_align = prefix_align + seg_align
-                    prefix_frames += snap.frames_decoded
-                    await self._run(self._batcher.init_decoding, cid)
         finally:
             if cid is not None:
                 await self._close_channel(cid)
@@ -273,8 +299,9 @@ class AsrServer:
             with suppress(ConnectionError):
                 await writer.wait_closed()
 
-    async def _close_channel(self, cid: int) -> None:
-        await self._run(self._batcher.release, cid)
+    async def _close_channel(self, cid: int, req=None) -> None:
+        await self._run("device/release", self._batcher.release, cid,
+                        req=req)
         self._chan_events.pop(cid, None)
         self._chan_sem.release()
 
@@ -296,7 +323,8 @@ class AsrServer:
         def with_prefix(text: str) -> str:
             return f"{prefix_text} {text}".strip() if prefix_text else text
 
-        best = self._batcher.get_best_path_from(snap)
+        with profiling.span("result/traceback"):
+            best = self._batcher.get_best_path_from(snap)
         seg_words = list(best.get("words", []))
         if final and pkg.nbest > 1:
             for r in self._batcher.get_nbest_from(snap, pkg.nbest):
@@ -322,7 +350,8 @@ class AsrServer:
         # replies carry none
         seg_align: list = []
         if self.info.fst is not None:
-            seg_align = word_alignment(self.info, best, prefix_frames)
+            with profiling.span("result/align"):
+                seg_align = word_alignment(self.info, best, prefix_frames)
         if pkg.ali_info and self.info.fst is not None:
             reply.align = prefix_align + seg_align
             reply.ali_info = True
@@ -335,6 +364,14 @@ class AsrServer:
                 reply.lattice = lat.to_bytes()
                 reply.do_rescore = self.config.advertise_rescore
         return reply, seg_words, seg_align
+
+
+def _timed(queue: str, name: str, req, submitted: float, fn, args):
+    """``fn(*args)`` on an executor's thread: the span ``queue`` from
+    ``submitted`` to now, then ``fn`` inside the span ``name``."""
+    profiling.record(queue, submitted, time.perf_counter(), req)
+    with profiling.span(name, req):
+        return fn(*args)
 
 
 def run_server(info: OnlineDecoderInfo,

@@ -52,6 +52,8 @@ from contextlib import contextmanager
 
 import torch
 
+from asr_decoder_tpu_torch.utils.profiling import span
+
 
 def _counted_modules() -> tuple:
     from asr_decoder_tpu_torch.ops import fetch, gather
@@ -134,8 +136,9 @@ class GraphRunner:
 
     def _capture(self):
         """The first call: run eagerly, then capture (``torch.cuda.graph``
-        waits for the eager run and captures on a stream of its own)."""
-        with torch.cuda.device(self.device):
+        waits for the eager run and captures on a stream of its own); the
+        two are the span ``capture``."""
+        with span("capture"), torch.cuda.device(self.device):
             out = self._first_call()
             graph = torch.cuda.CUDAGraph()
             with self.counts.capture(), torch.cuda.graph(graph):

@@ -53,6 +53,7 @@ COUNTERPARTS = {
     "parallel/mesh.py:replicated":
         "returns a JAX NamedSharding with an empty PartitionSpec; torch "
         "has no sharding object: a replicated tensor is a copy a device",
+    "utils/profiling.py:annotate": f"{PORT}.utils.profiling:span",
     "wakeup/dtw.py:INF":
         "jnp.inf as a module constant; the port fills with float('inf') "
         "where it pads",

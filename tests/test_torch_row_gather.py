@@ -258,11 +258,22 @@ def test_profile_production_smoke(capsys, tmp_path, monkeypatch):
 
 def test_scope_ranges_only_under_the_profiler(tmp_path):
     """A search range costs nothing with no profiler recording and shows by
-    name in ``key_averages()`` under ``trace``."""
-    from asr_decoder_tpu_torch.utils.profiling import scope, trace
+    name in ``key_averages()`` under ``trace``; a program span opens a
+    range only under the profiler, and is recorded either way."""
+    from asr_decoder_tpu_torch.utils.profiling import scope, span, spans, \
+        trace
     assert not isinstance(scope("test/idle"), torch.profiler.record_function)
+    with span("test/span_idle") as idle:
+        assert idle._range is None
     with trace(str(tmp_path)) as prof:
         with scope("test/double"):
             torch.ones(4) * 2
-    assert "test/double" in {e.key for e in prof.key_averages()}
+        with span("test/span") as traced:
+            assert isinstance(traced._range, torch.profiler.record_function)
+            torch.ones(4) * 3
+    keys = {e.key for e in prof.key_averages()}
+    assert "test/double" in keys and "test/span" in keys
+    assert "test/span_idle" not in keys
+    assert {"test/span_idle", "test/span"} <= {
+        s.name for s in spans(idle.start, traced.end)}
     assert (tmp_path / "trace.json").exists()
