@@ -45,6 +45,8 @@ from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.ops.fetch import fetch_records
 from asr_decoder_tpu_torch.ops.gather import (batched_table_gather,
                                               batched_table_gather_many)
+from asr_decoder_tpu_torch.ops.traceback import (best_paths, unpack,
+                                                 walk_tables)
 from asr_decoder_tpu_torch.utils.cuda_graphs import GraphRunner
 from asr_decoder_tpu_torch.utils.profiling import scope, span
 
@@ -716,7 +718,7 @@ class TorchBeamSearch:
 
     The surface of the JAX ``TpuBeamSearch`` (ref ``DecoderItf``,
     src/my-decoder/decoder-itf.h:10-25): ``init_state`` ≡ InitDecoding,
-    ``advance`` ≡ AdvanceDecoding over a chunk of frames, host
+    ``advance`` ≡ AdvanceDecoding over a chunk of frames,
     ``traceback`` ≡ GetBestPath, plus ``token_sets``/``get_lattices``.
     ``mode`` (closure|sweeps) and ``relax_impl`` (topk = v3, sort = v2)
     follow the JAX class's ``auto`` rules.
@@ -728,6 +730,7 @@ class TorchBeamSearch:
         self.config = config or DecoderConfig()
         cfg = self.config
         self._graphs: dict = {}   # frame runners by static key (run_frames)
+        self._walk_tables: dict = {}  # device traceback's tables by device
         cfg.check()
         if cfg.gather_impl or cfg.fetch_impl:
             raise ValueError(
@@ -870,17 +873,29 @@ class TorchBeamSearch:
                   fst_arcs=None) -> list[dict]:
         """Per-utterance dicts with arc ids, words, ilabels, cost.
 
-        ``logs``: one FrameLog or a list of per-chunk FrameLogs (walked in
-        reverse without concatenation).  ``fst_arcs``: the source StdFst
-        for olabel/ilabel lookup; if None only arc ids and cost are
-        returned.  The super-final token is preferred, else the best live
-        one.  The spans ``traceback/copy`` (the state, logs and snapshots
-        to the host, all before the walk) and ``traceback/walk`` time its
-        two parts."""
+        ``logs``: one FrameLog or a list of per-chunk FrameLogs (the host
+        walks them in reverse without concatenation).  ``fst_arcs``: the
+        source StdFst for olabel/ilabel lookup; if None only arc ids and
+        cost are returned.  The super-final token is preferred, else the
+        best live one.
+
+        Where the v3 logs lie on a CUDA device, the walk runs there
+        (``ops/traceback.py``, chunks concatenated on the device first) and
+        only the paths come back; logs on the host (the server's and the
+        sessions' per-chunk copies) and the v2 engine's are walked on the
+        host.  Both give equal dicts.  The spans ``traceback/copy`` (logs
+        on the card: the walk and the copy of its output; on the host: the
+        state, logs and snapshots to the host) and ``traceback/walk`` (on
+        the card: the paths' reversal and label lookups; on the host: the
+        walk) time its two parts."""
+        chunks = logs if isinstance(logs, list) else [logs]
+        if self.relax_impl == "topk" and chunks and all(
+                isinstance(c.prev_slot, torch.Tensor) and c.prev_slot.is_cuda
+                for c in chunks):
+            return self._traceback_device(state, init_log, chunks, fst_arcs)
         with span("traceback/copy"):
             tok_state = _np(state.tok_state)
             tok_cost = _np(state.tok_cost)
-            chunks = logs if isinstance(logs, list) else [logs]
             walk = (self._walk_v3 if self.relax_impl == "topk"
                     else self._walk_v2)(chunks, init_log)
         final_id = int(self.dev.final_state)
@@ -900,6 +915,42 @@ class TorchBeamSearch:
                     il = fst_arcs.arc_ilabel[arc_ids]
                     res["words"] = [int(x) for x in ol[ol != 0]]
                     res["ilabels"] = [int(x) for x in il[il != 0]]
+                results.append(res)
+        return results
+
+    @torch.inference_mode()
+    def _traceback_device(self, state: BeamState, init_log: FrameLog,
+                          chunks: list, fst_arcs) -> list[dict]:
+        """The v3 traceback over logs on a CUDA device: one launch of the
+        walk kernel for the batch, one copy of its paths to pinned host
+        memory, then per row the reversal and label lookups."""
+        device = chunks[0].prev_slot.device
+        with span("traceback/copy"):
+            tables = self._walk_tables.get(device)
+            if tables is None:
+                tables = self._walk_tables[device] = walk_tables(
+                    self.dev, self.A, self.C, device)
+            prev, aid, snap = (
+                torch.cat(x) if len(x) > 1 else x[0]
+                for x in zip(*((c.prev_slot, c.arc_id, c.tok_state)
+                               for c in chunks)))
+            on = functools.partial(torch.as_tensor, device=device)
+            out = best_paths(tables, on(state.tok_state), on(state.tok_cost),
+                             prev, aid, snap, on(init_log.prev_slot),
+                             on(init_log.arc_id), on(init_log.tok_state))
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            torch.cuda.current_stream(device).synchronize()
+        results = []
+        with span("traceback/walk"):
+            for arcs, cost, final in unpack(host.numpy()):
+                res = dict(arc_ids=arcs.tolist(), cost=cost,
+                           reached_final=final)
+                if fst_arcs is not None:
+                    ol = fst_arcs.arc_olabel[arcs]
+                    il = fst_arcs.arc_ilabel[arcs]
+                    res["words"] = ol[ol != 0].tolist()
+                    res["ilabels"] = il[il != 0].tolist()
                 results.append(res)
         return results
 

@@ -37,8 +37,11 @@ The names, each written at its call site:
   ``result/traceback`` and ``result/align``.
 * ``serving/batcher.py`` ``step``: ``tick/pack``, ``tick/launch``,
   ``tick/wait`` (the previous tick's log copy), ``tick/deliver``.
-* ``ops/beamsearch.py`` ``traceback``: ``traceback/copy`` (the device
-  arrays to the host), ``traceback/walk``.
+* ``ops/beamsearch.py`` ``traceback``: ``traceback/copy`` and
+  ``traceback/walk``.  With the logs on a card: the walk kernel
+  (``ops/traceback.py``) and the copy of its paths to the host, then the
+  host's reversal and label lookups.  With the logs on the host: the
+  state, logs and snapshots to the host, then the walk.
 * ``utils/cuda_graphs.py``: ``capture`` (a graph's first call and
   capture).
 """

@@ -15,7 +15,11 @@ sources in this checkout, then:
      multi-table form included, and ``FETCH_CASES``, full and mixed live
      counts) and times it beside its bound (the bytes the data needs at
      3.35 TB/s), the plain version, the library call and the launch floor
-     (an empty kernel in the same graph harness);
+     (an empty kernel in the same graph harness); then the traceback
+     kernel, which replaces the host walk and no TPU kernel, bit-exactly
+     against its plain version at the offline cells' shapes
+     (``TRACEBACK_CASES``) and timed beside its latency-chain bound (its
+     dependent reads at an L2 round trip, timed by a pointer chase);
   3. checks the row-gather counterparts of the three ``tools/perf`` TPU
      kernels (``make_dma_gather``, ``make_dma``, ``make_dma_dyn``) bit-
      exactly against their plain version at the JAX tools' shapes (2M-row
@@ -156,7 +160,10 @@ graph-types, VAD serve and offline runs, the fetch with its launches in the
 serve, decode CLI, VAD serve and offline runs,
 the three microbench row gathers with their tool-path launches, each with
 its bound and library time; the search kernels' launches include
-phase 10's dp decodes, dp arena and BigLM dp decode) and
+phase 10's dp decodes, dp arena and BigLM dp decode; then the traceback
+kernel with its launches in the offline runs, one a batch, where the
+serve runs and the decode CLI, whose logs are host copies, launch none)
+and
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX and nothing
 of the JAX package ``asr_decoder_tpu`` (the port keeps its own copies of
 the host modules), which it checks at the end of the run.
@@ -217,6 +224,16 @@ FETCH_SHAPES = [(16, 512), (256, 512), (32, 4096)]
 FETCH_CASES = [(200_001, 32, FETCH_SHAPES), (2_500_000, 32, FETCH_SHAPES),
                (2_500_000, 64, FETCH_SHAPES), (2_500_000, 128, FETCH_SHAPES),
                (54_770, 64, [(64, 1024)])]
+# the traceback kernel at the offline cells' shapes — (B, K, frames,
+# beam, min_active, cell) — over a random HCLG of TRACEBACK_STATES states;
+# its bound's yardstick chases CHASE_STEPS dependent reads through a cycle
+# over CHASE_HBM words after a CHASE_FLUSH-byte write (device memory) and
+# over CHASE_L2 words after the same walk (the L2), CHASE_REPS times
+TRACEBACK_CASES = [(256, 512, 267, 14.0, 16, "hclg200k.offline"),
+                   (32, 4096, 264, 12.0, 200, "tlg2m.offline")]
+TRACEBACK_STATES = 50_000
+CHASE_STEPS, CHASE_HBM, CHASE_L2 = 20_000, 1 << 26, 1 << 20
+CHASE_FLUSH, CHASE_REPS = 256 << 20, 5
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published peak
 V3_GATHERS_PER_FRAME = 7           # phase 4: emit 5 + closure 2
 # the tools/perf row-gather microbenches (JAX tools' shapes)
@@ -440,6 +457,133 @@ def fetch_cases(gen, dev, S: int, L: int, shapes, floor: float) -> dict:
     return out
 
 
+def chase_us(dev) -> tuple[float, float]:
+    """us a dependent read, through device memory and through the L2: one
+    thread follows a random cycle (``csrc/traceback.cu``'s chase kernel)
+    ``CHASE_STEPS`` reads from word 0, over ``CHASE_HBM`` words with the
+    L2 flushed just before (a write of ``CHASE_FLUSH`` bytes), and over
+    ``CHASE_L2`` words just after the same walk left its lines in the L2.
+    The clocks are warmed first by ~0.3 s of matrix products; each is the
+    least of ``CHASE_REPS`` timings, the two taken in turn."""
+    import ctypes
+    from asr_decoder_tpu_torch.ops._build import load_library
+    fn = load_library("traceback").traceback_chase_i32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def cycle(words):
+        order = torch.randperm(words, generator=gen, device=dev)
+        nxt = torch.empty(words, dtype=torch.int32, device=dev)
+        nxt[order] = order.roll(-1).to(torch.int32)
+        return nxt
+    bufs = {"hbm": cycle(CHASE_HBM), "l2": cycle(CHASE_L2)}
+    flush = torch.empty(CHASE_FLUSH, dtype=torch.uint8, device=dev)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def run(nxt, steps):
+        check(fn(nxt.data_ptr(), steps, out.data_ptr(),
+                 torch.cuda.current_stream().cuda_stream) == 0,
+              "chase kernel launched")
+
+    def timed(nxt):
+        start.record()
+        run(nxt, CHASE_STEPS)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / CHASE_STEPS
+    a = torch.randn((4096, 4096), generator=gen, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.3:
+        (a @ a).sum().item()
+    del a
+    best = {"hbm": float("inf"), "l2": float("inf")}
+    for _ in range(CHASE_REPS):
+        flush.fill_(1)
+        best["hbm"] = min(best["hbm"], timed(bufs["hbm"]))
+        run(bufs["l2"], CHASE_STEPS)
+        best["l2"] = min(best["l2"], timed(bufs["l2"]))
+    check(best["hbm"] > 1.5 * best["l2"],
+          f"chase: the device-memory read ({best['hbm']:.4f} us) clearly "
+          f"above the L2's ({best['l2']:.4f} us)")
+    return best["hbm"], best["l2"]
+
+
+def traceback_cases(dev, floor: float) -> dict:
+    """The traceback kernel at the offline cells' shapes
+    (``TRACEBACK_CASES``), on the logs of a search over a random HCLG with
+    padded rows: bit-exact against its plain version (each row's length,
+    cost, final flag and arcs), timed (device time in the graph harness,
+    and an eager call) beside its latency-chain bound (S·T + 9 dependent
+    reads a row, each an L2 round trip, every row in flight at once), the
+    same chain at the device-memory round trip, the plain version's wall
+    time and the launch floor.  Returns the numbers of the hclg200k
+    shape."""
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
+    from asr_decoder_tpu_torch.fst.synthetic import random_hclg
+    from asr_decoder_tpu_torch.ops import traceback as tb
+    from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
+    hbm, l2 = chase_us(dev)
+    print(f"chase: a dependent read {hbm:.4f} us through "
+          f"{CHASE_HBM * 4 >> 20} MB after an L2 flush (device memory), "
+          f"{l2:.4f} us through {CHASE_L2 * 4 >> 20} MB warm (the L2); "
+          f"the least of {CHASE_REPS} each")
+    dfst = DeviceFst.build(random_hclg(np.random.default_rng(17),
+                                       num_states=TRACEBACK_STATES,
+                                       num_ilabels=NUM_PDFS - 1),
+                           arc_lanes=ARC_LANES)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for B, K, T, beam, min_active, cell in TRACEBACK_CASES:
+        search = TorchBeamSearch(
+            dfst, np.arange(NUM_PDFS, dtype=np.int32),
+            DecoderConfig(beam=beam, beam_width=K, max_active=K,
+                          min_active=min_active, arc_lanes=ARC_LANES,
+                          eps_mode="closure", relax_impl="topk"),
+            device=dev)
+        ll = 3 * torch.randn((B, T, NUM_PDFS), generator=gen, device=dev)
+        lens = torch.randint(T // 2, T + 1, (B,), generator=gen, device=dev)
+        lens[0] = T
+        mask = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        state, init_log, logs = search.decode(ll, mask)
+        tables = tb.walk_tables(dfst, search.A, search.C, dev)
+        args = (tables, state.tok_state, state.tok_cost, logs.prev_slot,
+                logs.arc_id, logs.tok_state, init_log.prev_slot,
+                init_log.arc_id, init_log.tok_state)
+        got = tb.best_paths(*args).cpu()
+        t0 = time.perf_counter()
+        want = tb.best_paths_plain(*args).cpu()
+        pms = (time.perf_counter() - t0) * 1e3
+        n = want[:, tb.LENGTH].clamp(min=0)
+        check(bool((n > 0).all()) and all(
+            torch.equal(g[:tb.HEAD + k], w[:tb.HEAD + k])
+            for g, w, k in zip(got, want, n.tolist())),
+            f"traceback [{cell}] B={B} K={K} T={T}: kernel == plain")
+        ms, wms = time_ms(lambda: tb.best_paths(*args), calls=20, replays=5)
+        S = logs.prev_slot.shape[1]
+        chain = S * T + 9
+        bms = chain * l2 * 1e-3
+        copy_gb = (2 * logs.prev_slot.numel() + logs.tok_state.numel()) \
+            * 4 / 1e9
+        print(f"traceback [{cell}] B={B} K={K} T={T} S={S}: kernel == "
+              f"plain bit for bit ({int(want[:, tb.FINAL].sum())} of {B} "
+              f"rows reach the final state, paths {int(n.min())}-"
+              f"{int(n.max())} arcs); device kernel {ms:.4f} ms, latency-"
+              f"chain bound {bms:.4f} ms ({chain} dependent reads at the "
+              f"L2's {l2:.4f} us; {bms / ms:.1%}), the chain at device "
+              f"memory's {hbm:.4f} us {chain * hbm * 1e-3:.4f} ms; plain "
+              f"{pms:.1f} ms (wall), launch floor {floor:.4f} ms; per "
+              f"eager call {wms:.4f} ms; the host walk's copy {copy_gb:.3f}"
+              f" GB")
+        out[cell] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=bms,
+                         bound_by="latency", library_ms=None)
+        del search, state, init_log, logs, args, ll
+    return out["hclg200k.offline"]
+
+
 def phase_kernels(dev) -> dict:
     """Both search kernels at the main path's shapes (``GATHER_CASES``,
     ``FETCH_CASES``); returns the JSON numbers of each at its record shape
@@ -466,6 +610,7 @@ def phase_kernels(dev) -> dict:
         if (S, L) == (200_001, 32):
             out["fetch"] = recs[(BATCH, 512)]
     out["fetch"]["max_abs_err"] = err
+    out["traceback"] = traceback_cases(dev, floor)
     return out
 
 
@@ -915,7 +1060,7 @@ def serve_check(info, utts: int, label: str,
     waves."""
     from asr_decoder_tpu_torch.serving.client import AsyncAsrClient
     from asr_decoder_tpu_torch.serving.protocol import EndFlag
-    from asr_decoder_tpu_torch.ops import fetch, gather
+    from asr_decoder_tpu_torch.ops import fetch, gather, traceback
     from asr_decoder_tpu_torch.serving.batcher import BatchedStreamingDecoder
     from asr_decoder_tpu_torch.serving.server import AsrServer, SocketConfig
     n = int(16000 * seconds)
@@ -936,11 +1081,13 @@ def serve_check(info, utts: int, label: str,
         finally:
             await server.stop()
 
-    gather.launches = fetch.launches = 0
+    gather.launches = fetch.launches = traceback.launches = 0
     t0 = time.perf_counter()
     replies, server = asyncio.run(serve())
     wall = time.perf_counter() - t0
     launches = {"gather": gather.launches, "fetch": fetch.launches}
+    check(traceback.launches == 0, f"{label}: the served path walks its "
+          f"host logs ({traceback.launches} traceback kernel launches)")
 
     # reference: the same waves, chunks and arena width, in process
     eng = BatchedStreamingDecoder(info, utts)
@@ -1746,13 +1893,17 @@ def start_tlg_build() -> subprocess.Popen:
          "build_or_load_tlg()"], stdout=subprocess.DEVNULL)
 
 
-def counted(fn, label: str, need=("gather", "fetch")) -> tuple:
-    """``fn()`` with both search kernels' counts set to 0 just before and
-    read just after; the kernels in ``need`` must have launched.  Returns
-    ``fn``'s result and {"gather", "fetch": launches, "shapes": (the
-    gather's, the fetch's launch shapes in that run)}."""
-    from asr_decoder_tpu_torch.ops import fetch, gather
-    gather.launches = fetch.launches = 0
+def counted(fn, label: str, need=("gather", "fetch"),
+            tracebacks: int | None = 0) -> tuple:
+    """``fn()`` with both search kernels' and the traceback kernel's
+    counts set to 0 just before and read just after; the kernels in
+    ``need`` must have launched, and the traceback kernel exactly
+    ``tracebacks`` times (one a batch whose logs lie on the card; none
+    where the logs are host copies; None: the caller checks).  Returns ``fn``'s result and
+    {"gather", "fetch", "traceback": launches, "shapes": (the gather's,
+    the fetch's launch shapes in that run)}."""
+    from asr_decoder_tpu_torch.ops import fetch, gather, traceback
+    gather.launches = fetch.launches = traceback.launches = 0
     gather.shapes, fetch.shapes = set(), set()
     try:
         out = fn()
@@ -1761,9 +1912,12 @@ def counted(fn, label: str, need=("gather", "fetch")) -> tuple:
         shapes = (gather.shapes, fetch.shapes)
         gather.shapes = fetch.shapes = None
     n = {"gather": gather.launches, "fetch": fetch.launches,
-         "shapes": shapes}
+         "traceback": traceback.launches, "shapes": shapes}
     check(all(n[k] > 0 for k in need),
           f"{label}: {' and '.join(need)} launched ({n})")
+    check(tracebacks is None or n["traceback"] == tracebacks,
+          f"{label}: traceback kernel launched {n['traceback']} times, "
+          f"{tracebacks} expected")
     return out, n
 
 
@@ -1813,7 +1967,8 @@ def offline_headline(dev) -> dict:
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     from asr_decoder_tpu_torch.tools import bench
     run, n = counted(lambda: bench.headline(
-        dev, pairs=OFFLINE_REPEATS, engines=False), "offline headline")
+        dev, pairs=OFFLINE_REPEATS, engines=False), "offline headline",
+        tracebacks=1)
     r, k = run.report, run.keep
     check(r["batch"] == 256 and r["graph_states"] > GRAPH_STATES
           and r["effective_K"] == 512, f"headline at full size ({r})")
@@ -1845,7 +2000,8 @@ def offline_headline(dev) -> dict:
           f"{r['live_mean']}; K·F cut {r['kf_bind']}; traceback "
           f"{r['traceback_ms']} ms; AM card vs CPU max abs err {err:.2e} "
           f"on {R} rows, search card == CPU on them (words, costs); kernel "
-          f"launches gather {n['gather']} fetch {n['fetch']}")
+          f"launches gather {n['gather']} fetch {n['fetch']} traceback "
+          f"{n['traceback']}")
     n["max_abs_err"] = hold_launched_shapes(dev, n, "offline headline")
     return n
 
@@ -1859,7 +2015,7 @@ def offline_production(dev, tlg_proc: subprocess.Popen) -> dict:
     check(tlg_proc.wait(timeout=900) == 0, "the TLG build process exited 0")
     waited = time.perf_counter() - t0
     run, n = counted(lambda: bench.production(dev, pairs=OFFLINE_REPEATS),
-                     "offline production")
+                     "offline production", tracebacks=2)
     r, k = run.report, run.keep
     check(r["graph_cached"] and r["vocab"] == bench.TLG_FULL["vocab_size"]
           and r["graph_states"] > 2_000_000 and r["effective_K"] == 4096,
@@ -1901,7 +2057,8 @@ def offline_production(dev, tlg_proc: subprocess.Popen) -> dict:
           f"== unpacked in {eq['equal']}/{eq['of']} rows; live mean "
           f"{r['live_mean']}; K·F cut {r['kf_bind']}; search card == CPU on "
           f"{R} rows ({time.perf_counter() - t0:.1f} s of CPU checks); "
-          f"kernel launches gather {n['gather']} fetch {n['fetch']}")
+          f"kernel launches gather {n['gather']} fetch {n['fetch']} "
+          f"traceback {n['traceback']} (packed and unpacked)")
     n["max_abs_err"] = hold_launched_shapes(dev, n, "offline production")
     return n
 
@@ -1911,7 +2068,8 @@ def offline_realistic(dev) -> dict:
     from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
     from asr_decoder_tpu_torch.tools import bench
     run, n = counted(lambda: bench.realistic(
-        dev, pairs=OFFLINE_REPEATS, engines=False), "offline realistic")
+        dev, pairs=OFFLINE_REPEATS, engines=False), "offline realistic",
+        tracebacks=1)
     r, k = run.report, run.keep
     check(r["vocab"] == 30_000 and r["effective_K"] == 1024
           and all(x["words"] for x in k["results"]),
@@ -1929,7 +2087,7 @@ def offline_realistic(dev) -> dict:
           f"; K·F cut {r['kf_bind']}; search card == CPU on {R} rows (words,"
           f" arc ids, costs; {time.perf_counter() - t0:.1f} s of CPU "
           f"checks); kernel launches gather {n['gather']} fetch "
-          f"{n['fetch']}")
+          f"{n['fetch']} traceback {n['traceback']}")
     n["max_abs_err"] = hold_launched_shapes(dev, n, "offline realistic")
     return n
 
@@ -1950,7 +2108,8 @@ def offline_eval(dev) -> dict:
     harness.evaluate_wer = keep
     try:
         out, n = counted(lambda: eval_tool.run(quick=True, steps=EVAL_STEPS,
-                                               device=dev), "offline eval")
+                                               device=dev), "offline eval",
+                         tracebacks=None)
     finally:
         harness.evaluate_wer = real
     d = out["detail"]
@@ -1959,6 +2118,9 @@ def offline_eval(dev) -> dict:
           f"mismatches)")
     check(out["value"] < EVAL_WER, f"eval: WER {out['value']} < {EVAL_WER}")
     ((task, nnet, kw, res),) = calls
+    batches = -(-kw["num_utts"] // kw["batch"])
+    check(n["traceback"] == batches, f"eval: traceback kernel launched "
+          f"{n['traceback']} times, once for each of {batches} batches")
     with eager_graphs():
         eager = real(task, nnet, **kw)
     check(len(res.samples) == len(eager.samples) > 0 and all(
@@ -1975,7 +2137,8 @@ def offline_eval(dev) -> dict:
           f"{d['rtf']}; the AM (GraphedAm) == eager bit for bit on "
           f"{len(res.samples)} utterances, am_seconds graph "
           f"{res.am_seconds:.4f} vs eager {eager.am_seconds:.4f}; kernel "
-          f"launches gather {n['gather']} fetch {n['fetch']}")
+          f"launches gather {n['gather']} fetch {n['fetch']} traceback "
+          f"{n['traceback']}")
     n["max_abs_err"] = hold_launched_shapes(dev, n, "offline eval")
     return n
 
@@ -2153,9 +2316,10 @@ def graph_train(dev) -> None:
 
 
 def phase_offline(dev, tlg_proc: subprocess.Popen) -> dict:
-    """Returns the search kernels' launches over the three points and the
-    eval run, and the max abs err of both against their plain versions at
-    the shapes those runs launched them at."""
+    """Returns the search kernels' and the traceback kernel's launches
+    over the three points and the eval run, and the max abs err of the
+    search kernels against their plain versions at the shapes those runs
+    launched them at."""
     t0 = time.perf_counter()
     counts = []
     for fn in (offline_headline, lambda d: offline_production(d, tlg_proc),
@@ -2166,7 +2330,8 @@ def phase_offline(dev, tlg_proc: subprocess.Popen) -> dict:
     offline_train(dev)
     graph_train(dev)
     print(f"phase offline: {time.perf_counter() - t0:.1f} s")
-    out = {k: sum(c[k] for c in counts) for k in ("gather", "fetch")}
+    out = {k: sum(c[k] for c in counts)
+           for k in ("gather", "fetch", "traceback")}
     out["max_abs_err"] = max(c["max_abs_err"] for c in counts)
     return out
 
@@ -2657,6 +2822,10 @@ def run_phases(dev, name: str, t0: float, tlg_proc) -> int:
              source="asr_decoder_tpu_torch/csrc/fetch.cu",
              replaces="tools/perf/bench_dma_variants.py:63",
              **rows["make_dma_dyn"]),
+        dict(name="traceback_best_paths", route="cuda",
+             source="asr_decoder_tpu_torch/csrc/traceback.cu",
+             replaces=None, launches=offline["traceback"],
+             **kernels["traceback"]),
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
