@@ -17,12 +17,22 @@ once, which autograd differentiates without a chain of slice copies.
 Weights are registered with ``requires_grad=False``: serving never builds
 a graph.  ``models/flagship.py:ctc_train_step`` turns gradients on for the
 model it trains.
+
+Two kinds have no counterpart in the reference or the JAX package: the
+full-context Conformer AM's front end ``conv2d_subsample`` and its block
+``conformer`` (Gulati et al. 2020, arXiv:2005.08100).  They take a padded
+batch with per-row lengths (``takes_lengths``), the front end changes the
+frame count (``out_lengths``), and neither streams (``streaming`` False):
+each output frame reads the whole utterance.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # component-type ids of the reference binary format
@@ -41,6 +51,9 @@ KIND_IDS = {
     "add_shift": 0x010c,
     "rescale": 0x010d,
     "prior": 0x0600,
+    # the port's own ids: no reference component computes these
+    "conv2d_subsample": 0x0f00,
+    "conformer": 0x0f01,
 }
 ID_KINDS = {v: k for k, v in KIND_IDS.items()}
 
@@ -50,8 +63,17 @@ State = dict[str, torch.Tensor]
 
 
 class Layer(nn.Module):
-    """One component: ``kind``, dims, ``meta`` (splice offsets) and its
-    named weights, registered as parameters under the JAX names."""
+    """One component: ``kind``, dims, ``meta`` (splice offsets; a
+    Conformer block's heads, kernel and feed-forward width) and its named
+    weights, registered as parameters under the JAX names.
+
+    ``takes_lengths``: ``forward`` takes a third argument, the real frames
+    of each row (i64[B] on the input's device, or None for full rows), and
+    keeps padded frames out of every real frame's output.
+    ``streaming``: the layer can run chunk by chunk with its state."""
+
+    takes_lengths = False
+    streaming = True
 
     def __init__(self, kind: str, input_dim: int, output_dim: int,
                  params: dict[str, torch.Tensor] | None = None,
@@ -76,6 +98,12 @@ class Layer(nn.Module):
     def init_state(self, batch: int, device=None) -> State:
         """Zero streaming state (ref ResetRnnBuffer, nnet-nnet.cc:171-205)."""
         return {}
+
+    def out_lengths(self, lengths):
+        """Output frames of rows of ``lengths`` input frames (an integer
+        numpy array or tensor), for a kind that takes lengths: every kind
+        but ``conv2d_subsample`` keeps them."""
+        return lengths
 
     def forward(self, x: torch.Tensor, state: State
                 ) -> tuple[torch.Tensor, State]:
@@ -222,6 +250,161 @@ class Sru(Layer):
         return yr * torch.stack(cs, dim=1) + (1.0 - yr) * yah, {"c": c}
 
 
+def subsample_lengths(lengths):
+    """T' = ((T − 1) // 2 − 1) // 2, at least 0: two 3x3 stride-2
+    convolutions without padding (an int, integer numpy array or
+    tensor)."""
+    n = ((lengths - 1) // 2 - 1) // 2
+    return n.clip(0) if hasattr(n, "clip") else max(n, 0)
+
+
+def subsample_shapes(input_dim: int, output_dim: int) -> dict:
+    """``conv2d_subsample``'s weights in blob order: two 3x3 stride-2
+    Conv2d of ``output_dim`` channels, then Linear(C·F' → output_dim)."""
+    C, Fp = output_dim, subsample_lengths(input_dim)
+    return {"conv1_w": (C, 1, 3, 3), "conv1_b": (C,),
+            "conv2_w": (C, C, 3, 3), "conv2_b": (C,),
+            "out_w": (output_dim, C * Fp), "out_b": (output_dim,)}
+
+
+def conformer_shapes(d: int, heads: int, kernel: int, ffn: int) -> dict:
+    """A ``conformer`` block's weights in blob order (Linear weights
+    [out, in]; the q, k, v projections stacked in ``att_wqkv``)."""
+    ff = lambda p: {f"{p}_ln_g": (d,), f"{p}_ln_b": (d,),
+                    f"{p}_w1": (ffn, d), f"{p}_b1": (ffn,),
+                    f"{p}_w2": (d, ffn), f"{p}_b2": (d,)}
+    return {**ff("ff1"),
+            "att_ln_g": (d,), "att_ln_b": (d,),
+            "att_wqkv": (3 * d, d), "att_bqkv": (3 * d,),
+            "att_wpos": (d, d), "att_u": (heads, d // heads),
+            "att_v": (heads, d // heads),
+            "att_wo": (d, d), "att_bo": (d,),
+            "conv_ln_g": (d,), "conv_ln_b": (d,),
+            "conv_pw1_w": (2 * d, d), "conv_pw1_b": (2 * d,),
+            "conv_dw_w": (d, kernel), "conv_dw_b": (d,),
+            "bn_mean": (d,), "bn_var": (d,), "bn_g": (d,), "bn_b": (d,),
+            "conv_pw2_w": (d, d), "conv_pw2_b": (d,),
+            **ff("ff2"),
+            "out_ln_g": (d,), "out_ln_b": (d,)}
+
+
+def rel_positions(T: int, d: int, device) -> torch.Tensor:
+    """The sinusoidal table f32[2T − 1, d] of relative positions r = T − 1
+    down to −(T − 1): [2i] sin(r·ω_i), [2i+1] cos(r·ω_i), ω_i =
+    10000^(−2i/d) (ESPnet's ``RelPositionalEncoding``), formed in float64
+    so that every r rounds once."""
+    r = torch.arange(T - 1, -T, -1, device=device, dtype=torch.float64)
+    w = torch.exp(torch.arange(0, d, 2, device=device, dtype=torch.float64)
+                  * (-math.log(10000.0) / d))
+    a = r[:, None] * w[None, :]
+    return torch.stack([a.sin(), a.cos()], dim=-1).reshape(
+        2 * T - 1, d).float()
+
+
+class Conv2dSubsample(Layer):
+    """The Conformer's front end (ESPnet's ``Conv2dSubsampling``): [B, T,
+    F] as one input channel → Conv2d 3x3 stride 2 → ReLU → Conv2d 3x3
+    stride 2 → ReLU → [B, T', C·F'] (channel-major) → Linear → ·√d, the
+    scale ESPnet's positional encoding applies to its input.  No padding:
+    output frame t reads input frames 4t … 4t + 6, so a row's first
+    ``subsample_lengths(len)`` outputs read only its real frames."""
+
+    takes_lengths = True
+    streaming = False
+
+    def out_lengths(self, lengths):
+        return subsample_lengths(lengths)
+
+    def forward(self, x, state, lengths=None):
+        h = F.relu(F.conv2d(x[:, None], self.conv1_w, self.conv1_b,
+                            stride=2))
+        h = F.relu(F.conv2d(h, self.conv2_w, self.conv2_b, stride=2))
+        B, C, T, Fp = h.shape
+        h = h.transpose(1, 2).reshape(B, T, C * Fp)
+        y = F.linear(h, self.out_w, self.out_b)
+        return y * math.sqrt(self.output_dim), state
+
+
+class Conformer(Layer):
+    """One Conformer block (Gulati et al. 2020, §2), for x f32[B, T, d]:
+    x₁ = x + ½·FFN₁(x); x₂ = x₁ + MHSA(LN(x₁)); x₃ = x₂ + Conv(x₂);
+    y = LN(x₃ + ½·FFN₂(x₃)).  FFN = LN → Linear d→ffn → Swish → Linear
+    ffn→d.  MHSA: relative-position self-attention (Transformer-XL):
+    head h's score of query i and key j is ((q_i + u_h)·k_j + (q_i +
+    v_h)·p_{i−j}) / √(d/H), p_r = W_pos·PE(r) (``rel_positions``), keys
+    past the row's length masked.  Conv = LN → pointwise d→2d → GLU →
+    depthwise conv of ``kernel`` taps (padded as torch's "same": (k−1)//2
+    zeros before, the rest after; padded frames zeroed first) →
+    BatchNorm with running statistics → Swish → pointwise d→d.  ``meta``
+    = (heads, kernel, ffn).  Layer norms and the batch norm use ε = 1e-5.
+
+    Scores run in a [H, B, T, ·] layout: the relative term is one product
+    against the 2T − 1 positions, then a strided view picks p_{i−j} (the
+    rel-shift) without a copy."""
+
+    takes_lengths = True
+    streaming = False
+    EPS = 1e-5
+
+    def _ln(self, x, p):
+        return F.layer_norm(x, (x.shape[-1],), getattr(self, f"{p}_g"),
+                            getattr(self, f"{p}_b"), self.EPS)
+
+    def _ffn(self, x, p):
+        h = F.linear(self._ln(x, f"{p}_ln"), getattr(self, f"{p}_w1"),
+                     getattr(self, f"{p}_b1"))
+        return F.linear(F.silu(h), getattr(self, f"{p}_w2"),
+                        getattr(self, f"{p}_b2"))
+
+    def _mhsa(self, x, valid):
+        B, T, d = x.shape
+        H = self.meta[0]
+        dk = d // H
+        qkv = F.linear(self._ln(x, "att_ln"), self.att_wqkv, self.att_bqkv)
+        qkv = qkv.view(B, T, 3, H, dk).permute(2, 3, 0, 1, 4).contiguous()
+        q, k, v = qkv.unbind(0)                           # [H, B, T, dk]
+        p = F.linear(rel_positions(T, d, x.device), self.att_wpos)
+        p = p.view(2 * T - 1, H, dk).permute(1, 2, 0)     # [H, dk, 2T-1]
+        ac = torch.matmul(q + self.att_u[:, None, None], k.transpose(2, 3))
+        bd = torch.bmm((q + self.att_v[:, None, None]).view(H, B * T, dk),
+                       p).view(H, B, T, 2 * T - 1)
+        # bd[h, b, i, j] = the product with p_{i−j}: column T−1−i+j
+        bd = bd.as_strided((H, B, T, T),
+                           (B * T * (2 * T - 1), T * (2 * T - 1),
+                            2 * T - 2, 1), T - 1)
+        s = ac.add_(bd).mul_(1.0 / math.sqrt(dk))
+        if valid is not None:
+            s.masked_fill_(~valid[None, :, None, :], float("-inf"))
+        o = torch.matmul(torch.softmax(s, dim=-1), v)     # [H, B, T, dk]
+        o = o.permute(1, 2, 0, 3).reshape(B, T, d)
+        return F.linear(o, self.att_wo, self.att_bo)
+
+    def _conv(self, x, valid):
+        d = x.shape[-1]
+        K = self.meta[1]
+        h = F.glu(F.linear(self._ln(x, "conv_ln"), self.conv_pw1_w,
+                           self.conv_pw1_b), dim=-1)
+        if valid is not None:
+            h = h.masked_fill(~valid[..., None], 0.0)
+        h = F.pad(h.transpose(1, 2), ((K - 1) // 2, K // 2))
+        h = F.conv1d(h, self.conv_dw_w[:, None], self.conv_dw_b, groups=d)
+        h = F.batch_norm(h, self.bn_mean, self.bn_var, self.bn_g, self.bn_b,
+                         training=False, eps=self.EPS)
+        return F.linear(F.silu(h).transpose(1, 2), self.conv_pw2_w,
+                        self.conv_pw2_b)
+
+    def forward(self, x, state, lengths=None):
+        valid = None
+        if lengths is not None:
+            valid = (torch.arange(x.shape[1], device=x.device)[None, :]
+                     < lengths[:, None])
+        x = x + 0.5 * self._ffn(x, "ff1")
+        x = x + self._mhsa(x, valid)
+        x = x + self._conv(x, valid)
+        x = x + 0.5 * self._ffn(x, "ff2")
+        return self._ln(x, "out_ln"), state
+
+
 LAYER_CLASSES = {
     "splice": Splice,
     "add_shift": AddShift,
@@ -236,6 +419,8 @@ LAYER_CLASSES = {
     "tf_lstm": Lstm,
     "lstm_projected": LstmProjected,
     "sru": Sru,
+    "conv2d_subsample": Conv2dSubsample,
+    "conformer": Conformer,
 }
 
 
@@ -331,3 +516,35 @@ def make_rescale(scale) -> Layer:
     scale = torch.as_tensor(np.asarray(scale, np.float32))
     return make_layer("rescale", scale.shape[-1], scale.shape[-1],
                       {"scale": scale})
+
+
+def _draw(gen: torch.Generator, name: str, shape) -> torch.Tensor:
+    """One Conformer weight drawn so that no part is trivial: products at
+    1/√fan-in, biases, u, v and the batch norm's mean at 0.1, gains and β
+    near 1 and 0, variances log-normal around 1."""
+    n = _normal(gen, shape, 1.0)
+    if name.endswith(("_ln_g", "bn_g")):
+        return 1.0 + 0.1 * n
+    if name == "bn_var":
+        return torch.exp(0.3 * n)
+    if len(shape) >= 2 and name not in ("att_u", "att_v"):
+        return n / math.sqrt(int(np.prod(shape[1:])))
+    return 0.1 * n
+
+
+def make_conv2d_subsample(gen: torch.Generator, in_dim: int,
+                          out_dim: int) -> Layer:
+    """The front end, its output Linear scaled by a further 1/√out_dim so
+    that the ·√d after it leaves unit-scale frames."""
+    p = {k: _draw(gen, k, s) for k, s in
+         subsample_shapes(in_dim, out_dim).items()}
+    p["out_w"] = p["out_w"] / math.sqrt(out_dim)
+    return make_layer("conv2d_subsample", in_dim, out_dim, p)
+
+
+def make_conformer(gen: torch.Generator, d: int, heads: int, kernel: int,
+                   ffn: int) -> Layer:
+    return make_layer("conformer", d, d,
+                      {k: _draw(gen, k, s) for k, s in
+                       conformer_shapes(d, heads, kernel, ffn).items()},
+                      (heads, kernel, ffn))

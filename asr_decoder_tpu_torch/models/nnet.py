@@ -6,11 +6,18 @@ format (``u32 nlayer`` then per layer ``i32 in, i32 out, i32 type`` + raw
 float blobs, ref: nnet-nnet.cc:15-35, nnet-component.cc:66-101) — byte for
 byte the format the JAX package reads and writes — and the posterior
 post-processing of ``am_forward``.
+
+Counters (this process, the calls of every ``GraphedAm`` given per-row
+lengths, from the host's lengths and the output's shape: nothing is read
+back from the card): ``frames_out`` padded output frames, ``frames_real``
+the rows' output frames, ``attn_pairs`` Σ T'_b² over rows, the query-key
+pairs of a full-context attention layer a head.
 """
 
 from __future__ import annotations
 
 import struct
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -21,6 +28,8 @@ from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.utils.cuda_graphs import (GraphRunner, copy_into,
                                                      static_buffers,
                                                      static_key)
+from asr_decoder_tpu_torch.utils.profiling import span
+from asr_decoder_tpu_torch.models import layers as L
 from asr_decoder_tpu_torch.models.layers import (ID_KINDS, KIND_IDS, Layer,
                                                  make_layer)
 
@@ -29,6 +38,12 @@ from asr_decoder_tpu_torch.models.layers import (ID_KINDS, KIND_IDS, Layer,
 #  2.71828e30 whose log ≈ 70, nnet-nnet.cc:149)
 BLANK_SATURATE = 2.71828e30
 BLANK_SKIP_LOGPROB = 20.0
+
+# GraphedAm's counters (module docstring); callers read differences
+frames_out = 0
+frames_real = 0
+attn_pairs = 0
+_counters_lock = threading.Lock()
 
 
 @dataclass
@@ -83,6 +98,34 @@ class Nnet(nn.Module):
     def init_state(self, batch: int, device=None):
         return [l.init_state(batch, device) for l in self.layers]
 
+    @property
+    def streaming(self) -> bool:
+        """Whether the AM can run chunk by chunk (the served path): False
+        once a layer reads the whole utterance."""
+        return all(l.streaming for l in self.layers)
+
+    def output_lengths(self, lengths, skip: int = 0):
+        """Output frames of rows of ``lengths`` input frames (integer numpy
+        array or tensor), through ``am_forward`` with ``skip``."""
+        return output_lengths(self.layers, lengths, skip)
+
+    @classmethod
+    def conformer(cls, config: dict, seed: int, device="cuda") -> "Nnet":
+        """A full-context Conformer AM with seeded weights: conv2d_subsample
+        (``feat_dim`` → ``d_model``), ``blocks`` conformer blocks
+        (``heads``, ``conv_kernel``, ``ffn_dim``), affine to ``num_pdfs``,
+        softmax and a uniform prior (``benchmark/configs/conformer_l.json``
+        has these keys under ``am``)."""
+        gen = torch.Generator().manual_seed(seed)
+        d, V = config["d_model"], config["num_pdfs"]
+        layers = [L.make_conv2d_subsample(gen, config["feat_dim"], d)]
+        layers += [L.make_conformer(gen, d, config["heads"],
+                                    config["conv_kernel"], config["ffn_dim"])
+                   for _ in range(config["blocks"])]
+        layers += [L.make_affine(gen, d, V), L.make_softmax(V),
+                   L.make_prior(np.ones(V))]
+        return cls(layers).to(device)
+
     # ------------------------------------------------------------------
     # reference raw-binary model format
     # ------------------------------------------------------------------
@@ -111,6 +154,18 @@ class Nnet(nn.Module):
                 f.write(struct.pack("<3i", l.input_dim, l.output_dim,
                                     KIND_IDS[l.kind]))
                 _write_layer_blob(f, l)
+
+
+def require_streaming(nnet: Nnet, user: str) -> None:
+    """Raise for an AM that cannot run chunk by chunk (``Nnet.streaming``
+    False): ``user`` would decode it wrongly."""
+    if not nnet.streaming:
+        kinds = sorted({l.kind for l in nnet.layers if not l.streaming})
+        raise ValueError(
+            f"{user} streams its AM chunk by chunk, but this AM's "
+            f"{', '.join(kinds)} layers read the whole utterance: decode it "
+            f"offline (GraphedAm with lengths, then TorchBeamSearch.advance "
+            f"with the output lengths' frame mask)")
 
 
 def from_numpy_layers(layers, device="cuda") -> Nnet:
@@ -156,6 +211,13 @@ _BLOB_FIELDS = {
                        "phole_o", "w_r_m"),
     "sru": ("w_xfrh", "bias_f", "bias_r"),
 }
+# the port's own kinds: a conformer blob opens with i32 heads, kernel and
+# ffn width (its ``meta``), then each weight of ``layers.conformer_shapes``
+# in order; a conv2d_subsample blob is ``layers.subsample_shapes``' weights
+_PORT_SHAPES = {
+    "conv2d_subsample": lambda din, dout, meta: L.subsample_shapes(din, dout),
+    "conformer": lambda din, dout, meta: L.conformer_shapes(dout, *meta),
+}
 
 
 def _blob_shapes(kind: str, din: int, dout: int, H: int) -> dict:
@@ -175,6 +237,14 @@ def _read_layer_blob(f, kind: str, din: int, dout: int) -> Layer:
         offs = np.fromfile(f, "<i4", dout // din)
         return make_layer("splice", din, dout,
                           meta=tuple(int(o) for o in offs))
+    if kind in _PORT_SHAPES:
+        meta = (tuple(int(v) for v in np.fromfile(f, "<i4", 3))
+                if kind == "conformer" else ())
+        params = {name: torch.from_numpy(
+                      _f32(f, int(np.prod(shape))).reshape(shape).copy())
+                  for name, shape in _PORT_SHAPES[kind](din, dout,
+                                                        meta).items()}
+        return make_layer(kind, din, dout, params, meta)
     if kind == "lstm_cudnn":
         kind = "lstm"
     H = dout
@@ -193,6 +263,12 @@ def _write_layer_blob(f, l: Layer) -> None:
     if l.kind == "splice":
         np.asarray(l.meta, "<i4").tofile(f)
         return
+    if l.kind in _PORT_SHAPES:
+        if l.kind == "conformer":
+            np.asarray(l.meta, "<i4").tofile(f)
+        for name in _PORT_SHAPES[l.kind](l.input_dim, l.output_dim, l.meta):
+            getattr(l, name).detach().cpu().numpy().astype("<f4").tofile(f)
+        return
     kind = "lstm" if l.kind == "lstm_cudnn" else l.kind
     if kind not in _BLOB_FIELDS:
         raise IOError(f"no blob writer for {l.kind}")
@@ -206,9 +282,21 @@ def _write_layer_blob(f, l: Layer) -> None:
 # the decodable: forward + posterior pipeline
 # ----------------------------------------------------------------------
 
-def am_forward(layers, x: torch.Tensor, state, *, do_softmax=True,
-               do_log=True, sub_prior=True, block_pdf_pdfid=-1,
-               block_scale=1.0, skip_block=1.0, skip=0, skip_copy=False):
+def output_lengths(layers, lengths, skip: int = 0):
+    """Rows of ``lengths`` input frames → their output frames through
+    ``am_forward`` (``skip`` without ``skip_copy``)."""
+    if skip:
+        lengths = (lengths + skip) // (1 + skip)
+    for layer in layers:
+        if getattr(layer, "takes_lengths", False):
+            lengths = layer.out_lengths(lengths)
+    return lengths
+
+
+def am_forward(layers, x: torch.Tensor, state, *, lengths=None,
+               do_softmax=True, do_log=True, sub_prior=True,
+               block_pdf_pdfid=-1, block_scale=1.0, skip_block=1.0, skip=0,
+               skip_copy=False):
     """x f32[B,T,D] → log-likelihood rows f32[B,T',V], with streaming state.
 
     Mirrors NnetForward::FeedForward (ref: nnet-nnet.cc:89-168): run layers
@@ -219,17 +307,35 @@ def am_forward(layers, x: torch.Tensor, state, *, do_softmax=True,
     T' == T; without it skipped frames are dropped (T' = ceil(T/(1+skip))).
     The acoustic scale is NOT applied here (the search applies it, ref
     LogLikelihood nnet-nnet.h:212-233).
+
+    ``lengths`` i64[B] (on ``x``'s device): the real input frames of each
+    row of a padded batch.  The layers that take lengths (the only ones
+    that may change the frame count) keep the padding out of each row's
+    real output frames, and the call returns ``(x, state, output
+    lengths)``; a row's real frames then equal the same row run alone.
+    Without it every row is whole and the call returns ``(x, state)``.
+    Layers of other types (``parallel/mesh.py``'s wrappers) count as
+    kinds that take no lengths.
     """
     T_in = x.shape[1]
+    if lengths is not None and skip and skip_copy:
+        raise ValueError("lengths are not carried through skip_copy")
     if skip:
         x = x[:, ::1 + skip]
+        if lengths is not None:
+            lengths = (lengths + skip) // (1 + skip)
     new_state = []
     for i, layer in enumerate(layers):
         if layer.kind == "prior":
             break
         if layer.kind == "softmax" and not do_softmax:
             break
-        x, st = layer(x, state[i])
+        if getattr(layer, "takes_lengths", False):
+            x, st = layer(x, state[i], lengths)
+            if lengths is not None:
+                lengths = layer.out_lengths(lengths)
+        else:
+            x, st = layer(x, state[i])
         new_state.append(st)
     new_state.extend(state[len(new_state):])
     if do_softmax and do_log:
@@ -246,42 +352,83 @@ def am_forward(layers, x: torch.Tensor, state, *, do_softmax=True,
                 x, _ = last(x, {})
     if skip and skip_copy:
         x = torch.repeat_interleave(x, 1 + skip, dim=1)[:, :T_in]
+    if lengths is not None:
+        return x, new_state, lengths
     return x, new_state
 
 
 class GraphedAm:
     """``am_forward`` over one layer list, one captured CUDA graph for each
     static key (``utils/cuda_graphs.py``): the device, the shapes and
-    dtypes of the input and the streaming state, and the keyword flags —
-    as the JAX AM is
-    jitted by shapes and static arguments.  The input and the carries go
-    in through the runner's static buffers; the log-likelihoods and the new
-    state come out as fresh tensors, so nothing a caller keeps is
+    dtypes of the input, the streaming state and the lengths, and the
+    keyword flags — as the JAX AM is
+    jitted by shapes and static arguments.  The input, the carries and the
+    lengths go in through the runner's static buffers, so a padded length
+    has one capture whatever its rows' lengths; the log-likelihoods and the
+    new state come out as fresh tensors, so nothing a caller keeps is
     overwritten by the next call.  Runs only without autograd (training
-    calls ``am_forward``)."""
+    calls ``am_forward``).
+
+    The captures of one ``GraphedAm`` share one memory pool (otherwise
+    each keeps a pool at its own peak: a full-context AM over long padded
+    batches needs ~15 GB a shape): safe because a call holds
+    ``lock`` from its copy in to its outputs' clones, on the caller's one
+    stream (as every runner's replays are), so no capture's outputs are
+    read after another's replay.  Each call is the span
+    ``am/forward``; a call with lengths adds to the module's counters."""
 
     def __init__(self, layers):
         self.layers = list(layers)
         self._runners: dict = {}
+        self._pools: dict = {}
+        self.lock = threading.Lock()
 
-    def _runner(self, x, state, flags) -> GraphRunner:
-        key = (str(x.device), static_key((x, state)),
-               tuple(sorted(flags.items())))
+    def _runner(self, bufs, flags) -> GraphRunner:
+        x = bufs[0]
+        key = (str(x.device), static_key(bufs), tuple(sorted(flags.items())))
         run = self._runners.get(key)
         if run is None:
             layers = self.layers    # not self: no cycle keeps a dropped AM
+            pool = None
+            if x.device.type == "cuda":
+                pool = self._pools.get(str(x.device))
+                if pool is None:
+                    pool = self._pools[str(x.device)] = \
+                        torch.cuda.graph_pool_handle()
             run = self._runners[key] = GraphRunner(
-                lambda b: am_forward(layers, *b, **flags),
-                static_buffers((x, state), x.device), x.device)
+                lambda b: am_forward(layers, b[0], b[1],
+                                     lengths=b[2] if len(b) > 2 else None,
+                                     **flags),
+                static_buffers(bufs, x.device), x.device, pool=pool)
         return run
 
-    def __call__(self, x: torch.Tensor, state, **flags):
-        run = self._runner(x, state, flags)
-        with run.lock:
-            copy_into(run.buffers, (x, state))
-            y, new = run()
-            return y.clone(), [{k: v.clone() for k, v in st.items()}
-                               for st in new]
+    def __call__(self, x: torch.Tensor, state, lengths=None, **flags):
+        """``lengths``: the real frames of each row, on the host (numpy or
+        a CPU tensor; the counters read them there): then the call returns
+        ``(loglikes, state, output lengths)``, the last a host i64 array,
+        else ``(loglikes, state)``."""
+        global frames_out, frames_real, attn_pairs
+        with span("am/forward"):
+            host = None
+            bufs = (x, state)
+            if lengths is not None:
+                host = np.asarray(lengths, np.int64)
+                bufs = (x, state, torch.from_numpy(host).to(x.device))
+            run = self._runner(bufs, flags)
+            with self.lock:
+                copy_into(run.buffers, bufs)
+                out = run()
+                y = out[0].clone()
+                new = [{k: v.clone() for k, v in st.items()}
+                       for st in out[1]]
+            if host is None:
+                return y, new
+            real = output_lengths(self.layers, host, flags.get("skip", 0))
+            with _counters_lock:
+                frames_out += y.shape[0] * y.shape[1]
+                frames_real += int(real.sum())
+                attn_pairs += int((real * real).sum())
+            return y, new, real
 
 
 def blank_frame_mask(loglikes: torch.Tensor, block_pdf_pdfid: int,

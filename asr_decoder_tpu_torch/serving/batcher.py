@@ -49,6 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from asr_decoder_tpu_torch.models.nnet import require_streaming
 from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    OnlineDecoderInfo,
                                                    best_path, host_log,
@@ -134,6 +135,7 @@ class BatchedStreamingDecoder:
                                                            shard_search)
         from asr_decoder_tpu_torch.parallel.mesh import (data_sharding,
                                                          replicate_layers)
+        require_streaming(info.nnet, "BatchedStreamingDecoder")
         self.info = info
         self.B = num_channels
         self.mesh = mesh

@@ -38,7 +38,8 @@ from asr_decoder_tpu_torch.frontend.fbank import CmvnConfig, FbankConfig
 from asr_decoder_tpu_torch.frontend.pipeline import StreamingFrontend
 from asr_decoder_tpu_torch.frontend.pitch import ProcessPitchConfig
 from asr_decoder_tpu_torch.models.nnet import (AmConfig, GraphedAm, Nnet,
-                                               blank_frame_mask)
+                                               blank_frame_mask,
+                                               require_streaming)
 from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
 from asr_decoder_tpu_torch.ops.beamsearch_biglm import TorchBigLmBeamSearch
 from asr_decoder_tpu_torch.ops.beamsearch_clg import TorchClgBeamSearch
@@ -374,6 +375,7 @@ class OnlineDecoderSession:
     EndpointDetected, kaldi-online-nnet3-my-decoder.h:330-344)."""
 
     def __init__(self, info: OnlineDecoderInfo):
+        require_streaming(info.nnet, "OnlineDecoderSession")
         self.info = info
         self._front = info.make_frontend(batch=1)
         self._vad = info.make_vad()

@@ -99,12 +99,16 @@ class GraphRunner:
     """``body(buffers)`` as one captured CUDA graph on ``device``, or
     called directly on the CPU (module docstring).  A caller
     holds ``lock`` from filling the buffers to reading the results: the
-    buffers are shared by every caller of the runner."""
+    buffers are shared by every caller of the runner.  ``pool``: a
+    ``torch.cuda.graph_pool_handle()`` the capture shares with other
+    runners (their owner keeps any two from running at once), else the
+    graph keeps a pool of its own."""
 
-    def __init__(self, body, buffers, device: torch.device):
+    def __init__(self, body, buffers, device: torch.device, pool=None):
         self.body = body
         self.buffers = buffers
         self.device = torch.device(device)
+        self.pool = pool
         self.lock = threading.Lock()
         self.graph: torch.cuda.CUDAGraph | None = None
         self.counts = LaunchCounts()
@@ -141,7 +145,8 @@ class GraphRunner:
         with span("capture"), torch.cuda.device(self.device):
             out = self._first_call()
             graph = torch.cuda.CUDAGraph()
-            with self.counts.capture(), torch.cuda.graph(graph):
+            with self.counts.capture(), torch.cuda.graph(graph,
+                                                         pool=self.pool):
                 self._outputs = self.body(self.buffers)
         self.graph = graph
         return out

@@ -44,6 +44,9 @@ The names, each written at its call site:
   state, logs and snapshots to the host, then the walk.
 * ``utils/cuda_graphs.py``: ``capture`` (a graph's first call and
   capture).
+* ``models/nnet.py``: ``am/forward`` (a ``GraphedAm`` call: the copy in,
+  the replay and the outputs' clones; on the card it ends at the launch,
+  not at the device's end).
 """
 
 from __future__ import annotations
