@@ -122,19 +122,39 @@ def compute_fbank(cfg: FbankConfig, wave, device=None,
     if cfg.dither > 0 and generator is not None:
         frames = frames + cfg.dither * torch.randn(
             frames.shape, generator=generator).to(wave.device)
+    return fbank_frames(cfg, frames)
+
+
+def frame_rows(cfg: FbankConfig, wave: np.ndarray) -> np.ndarray:
+    """wave f32[B, N] → its frames f32[B, T, window_size] on the host,
+    the samples ``compute_fbank`` gathers for them (past the wave's end,
+    without snip_edges, its last sample)."""
+    N = wave.shape[1]
+    T = num_frames(cfg, N)
+    if T <= 0:
+        return np.zeros((wave.shape[0], 0, cfg.window_size), np.float32)
+    idx = (np.arange(T)[:, None] * cfg.window_shift
+           + np.arange(cfg.window_size)[None, :])
+    return wave[:, np.minimum(idx, N - 1)]
+
+
+def fbank_frames(cfg: FbankConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The fbank of each frame f32[..., window_size] → f32[..., num_bins]
+    (remove-DC, pre-emphasis, window, rFFT, power, mel product, log): the
+    per-frame arithmetic of ``compute_fbank``, each frame on its own."""
     if cfg.remove_dc:
         frames = frames - frames.mean(dim=-1, keepdim=True)
     if cfg.preemphasis > 0:
         first = frames[..., :1] * (1.0 - cfg.preemphasis)
         rest = frames[..., 1:] - cfg.preemphasis * frames[..., :-1]
         frames = torch.cat([first, rest], dim=-1)
-    frames = frames * torch.from_numpy(_window_fn(cfg)).to(wave.device)
+    frames = frames * torch.from_numpy(_window_fn(cfg)).to(frames.device)
     spec = torch.fft.rfft(frames, n=cfg.fft_size, dim=-1)
     power = spec.real.square() + spec.imag.square()
     if not cfg.use_power:
         power = power.sqrt()
     mel = torch.matmul(power, torch.from_numpy(mel_banks(cfg)).to(
-        wave.device).t())
+        frames.device).t())
     if cfg.use_log:
         mel = torch.log(mel.clamp(min=1.1921e-7))  # FLT_EPSILON floor
     return mel
@@ -158,20 +178,25 @@ class StreamingFbank:
 
     def accept(self, wave: np.ndarray, end: bool = False) -> torch.Tensor:
         """wave f32[B, n] chunk; returns the newly ready frames [B, t, M]."""
+        return compute_fbank(self.cfg, self.take(wave, end), self.device)
+
+    def take(self, wave: np.ndarray, end: bool = False) -> np.ndarray:
+        """Append the chunk wave f32[B, n] to the carry and return the
+        samples whose frames are ready, f32[B, m] (``compute_fbank`` of
+        them is what ``accept`` returns); the carry keeps the rest."""
         cfg = self.cfg
         wave = np.concatenate([self._carry, np.asarray(wave, np.float32)],
                               axis=1)
         if end:
             self._carry = np.zeros((self.batch, 0), np.float32)
-            return compute_fbank(cfg, wave, self.device)
+            return wave
         T = num_frames(cfg, wave.shape[1])
         if T <= 0:
             self._carry = wave
-            return torch.zeros((self.batch, 0, cfg.num_bins),
-                               device=self.device)
+            return wave[:, :0]
         usable = (T - 1) * cfg.window_shift + cfg.window_size
         self._carry = wave[:, T * cfg.window_shift:]
-        return compute_fbank(cfg, wave[:, :usable], self.device)
+        return wave[:, :usable]
 
 
 @dataclass

@@ -12,6 +12,7 @@ module's numpy, repeated here because that module imports JAX.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 
 from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.frontend.fbank import (FbankConfig, StreamingFbank,
+                                                  fbank_frames, frame_rows,
                                                   live_cmvn)
 from asr_decoder_tpu_torch.frontend.pitch import (PitchConfig,
                                                   ProcessPitchConfig,
@@ -190,11 +192,23 @@ class StreamingFrontend:
     @torch.inference_mode()
     def accept(self, pcm: np.ndarray, end: bool = False) -> np.ndarray:
         pcm = np.asarray(pcm, np.float32)
-        feats = self._fbank.accept(pcm, end=end)
+        feats = self._normalize(self._fbank.accept(pcm, end=end))
+        return self.finish(pcm, feats.cpu().numpy(), end)
+
+    def _normalize(self, feats: torch.Tensor) -> torch.Tensor:
+        """Live CMVN over new fbank frames f32[B, t, bins], where
+        configured (on their device)."""
         if self._cmvn_cfg is not None and feats.shape[1]:
             feats, self._cmvn_state = live_cmvn(self._cmvn_cfg, feats,
                                                 self._cmvn_state)
-        feats = feats.cpu().numpy()
+        return feats
+
+    @torch.inference_mode()
+    def finish(self, pcm: np.ndarray, feats: np.ndarray,
+               end: bool = False) -> np.ndarray:
+        """What ``accept(pcm, end)`` returns, given the chunk's fbank
+        (+ CMVN) frames f32[B, t, bins] as ``fbank_many`` computed them:
+        the pitch of ``pcm``, the merge and the deltas."""
         if self._pitch is not None:
             pf = self._pitch.process_wave(pcm, end=end)
             self._fpend = feats if self._fpend is None else \
@@ -205,3 +219,43 @@ class StreamingFrontend:
         if self._delta is not None:
             feats = self._delta.accept(feats, end=end)
         return feats
+
+
+# the stacked frame count of ``fbank_many`` is padded to a multiple of this,
+# so a card's FFT plans and buffers recur from call to call
+FBANK_ROWS = 512
+
+
+@torch.inference_mode()
+def fbank_many(fronts: list[StreamingFrontend], pcms: list[np.ndarray],
+               ends: list[bool]) -> list[np.ndarray]:
+    """The fbank (+ live CMVN) frames f32[B, t_i, bins] of every chunk
+    ``pcms[i]`` f32[B, n_i] to its stream ``fronts[i]`` (one fbank
+    configuration and device), for ``fronts[i].finish``: each stream's
+    sample carry and framing on the host, then one fbank over all the
+    frames stacked (zero frames pad their count to a multiple of
+    ``FBANK_ROWS``), each stream's CMVN over its own rows, and one copy to
+    the host."""
+    fb = fronts[0]._fbank
+    cfg = fb.cfg
+    frames = [frame_rows(cfg, f._fbank.take(p, end))
+              for f, p, end in zip(fronts, pcms, ends)]
+    bounds = [0, *itertools.accumulate(f.shape[0] * f.shape[1]
+                                       for f in frames)]
+    total = bounds[-1]
+    if total == 0:
+        return [np.zeros((*f.shape[:2], cfg.num_bins), np.float32)
+                for f in frames]
+    stacked = np.zeros((-(-total // FBANK_ROWS) * FBANK_ROWS,
+                        cfg.window_size), np.float32)
+    np.concatenate([f.reshape(-1, cfg.window_size) for f in frames],
+                   axis=0, out=stacked[:total])
+    mel = fbank_frames(cfg, torch.from_numpy(stacked).to(fb.device))
+    shapes = [(*f.shape[:2], cfg.num_bins) for f in frames]
+    spans = list(zip(fronts, shapes, bounds[:-1], bounds[1:]))
+    for f, shape, lo, hi in spans:
+        if f._cmvn_cfg is not None and hi > lo:
+            mel[lo:hi] = f._normalize(mel[lo:hi].reshape(shape)).flatten(
+                0, 1)
+    host = mel[:total].cpu().numpy()
+    return [host[lo:hi].reshape(shape) for _, shape, lo, hi in spans]

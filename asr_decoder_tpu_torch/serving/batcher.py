@@ -49,6 +49,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from asr_decoder_tpu_torch.frontend.pipeline import fbank_many
 from asr_decoder_tpu_torch.models.nnet import require_streaming
 from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    OnlineDecoderInfo,
@@ -60,6 +61,10 @@ from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    trailing_silence,
                                                    word_alignment)
 from asr_decoder_tpu_torch.utils import profiling
+
+
+def _pcm(pcm) -> np.ndarray:
+    return np.asarray(pcm, np.float32).reshape(1, -1)
 
 
 def _channel_rows(a: np.ndarray, cid: int, frames: int | None = None
@@ -122,7 +127,9 @@ class BatchedStreamingDecoder:
     """Up to ``num_channels`` concurrent streams through one batched
     dispatch per tick: ``push(cid, pcm, eos)`` is host frontend work;
     ``step()`` performs one AM forward + search advance over every channel
-    with ready frames (the DynamicBatcher::Push/compute cycle)."""
+    with ready frames (the DynamicBatcher::Push/compute cycle).  Pushes to
+    many channels at once can share one fbank (``fbank_many``) and their
+    snapshots one copy to the host (``copy_beams``)."""
 
     def __init__(self, info: OnlineDecoderInfo, num_channels: int,
                  mesh=None):
@@ -264,14 +271,32 @@ class BatchedStreamingDecoder:
                                                      ch.trailing_sil)
 
     # -- streaming input (host frontend, ref DynamicBatcher::Push) ---------
-    def push(self, cid: int, pcm: np.ndarray, eos: bool = False) -> None:
+    def _open(self, cid: int) -> _Channel:
         ch = self._channels[cid]
         if ch is None or ch.eos:
             raise ValueError(f"channel {cid} is not open for input")
+        return ch
+
+    def fbank_many(self, pushes: list[tuple[int, np.ndarray, bool]]
+                   ) -> list[np.ndarray]:
+        """The fbank frames of every push ``(cid, pcm, eos)``, one channel
+        each, computed at once (``frontend/pipeline.py:fbank_many``); hand
+        each to its ``push(cid, pcm, eos, fbank=...)``, in this order."""
+        fronts = [self._open(cid).front for cid, _, _ in pushes]
+        return fbank_many(fronts, [_pcm(pcm) for _, pcm, _ in pushes],
+                          [eos for _, _, eos in pushes])
+
+    def push(self, cid: int, pcm: np.ndarray, eos: bool = False,
+             fbank: np.ndarray | None = None) -> None:
+        """Channel ``cid``'s next chunk of PCM; ``fbank``: its fbank frames
+        as ``fbank_many`` computed them, in place of the channel's own
+        fbank of ``pcm``."""
+        ch = self._open(cid)
         info = self.info
-        pcm = np.asarray(pcm, np.float32).reshape(1, -1)
+        pcm = _pcm(pcm)
         ch.trailing_sil = trailing_silence(ch.vad, pcm, eos, ch.trailing_sil)
-        feats = ch.front.accept(pcm, end=eos)[0]
+        feats = (ch.front.accept(pcm, end=eos) if fbank is None
+                 else ch.front.finish(pcm, fbank, end=eos))[0]
         spliced = ch.featbuf.accept(feats, end=eos)
         # plain skip drops frames here; skip_copy subsamples inside
         # am_forward — the same split as session.py
@@ -372,16 +397,52 @@ class BatchedStreamingDecoder:
     # and may run on other threads while the arena keeps stepping.  The
     # ``cid`` forms take the snapshot first, so they run on the device
     # thread.
-    def snapshot(self, cid: int) -> ChannelSnapshot:
+    def snapshot(self, cid: int, beam: tuple | None = None
+                 ) -> ChannelSnapshot:
+        """``beam``: the channel's beam rows as ``copy_beams`` copied them
+        since the last ``step``, in place of a copy of its own."""
         self._flush_logs()
         ch = self._channels[cid]
-        blk, row = self._block(cid)
-        return ChannelSnapshot(
-            beam=type(blk.beam)(*(to_host(a[row:row + 1])
-                                  for a in blk.beam)),
-            chunk_logs=list(ch.chunk_logs),
-            loglikes=list(ch.loglikes),
-            frames_decoded=ch.frames_decoded)
+        if beam is None:
+            blk, row = self._block(cid)
+            beam = type(blk.beam)(*(to_host(a[row:row + 1])
+                                    for a in blk.beam))
+        return ChannelSnapshot(beam=beam, chunk_logs=list(ch.chunk_logs),
+                               loglikes=list(ch.loglikes),
+                               frames_decoded=ch.frames_decoded)
+
+    @torch.inference_mode()
+    def copy_beams(self, cids: list[int]) -> list[tuple]:
+        """The beam rows of channels ``cids`` (lanes, numpy [1, ...]), for
+        their ``snapshot(cid, beam)``: the logs flushed, then per block one
+        copy to the host a lane of its rows from the first to the last of
+        those channels (a plain copy: a gather of the rows would launch a
+        kernel as well).  The host copies are the callers' own: no later
+        call writes them."""
+        self._flush_logs()
+        rows: dict[int, list[int]] = {}
+        for cid in cids:
+            i, row = divmod(cid, self._rows)
+            rows.setdefault(i, []).append(row)
+        host, ready = {}, []
+        for i, r in rows.items():
+            blk = self._blocks[i]
+            lo, hi = min(r), max(r) + 1
+            host[i] = (lo, [a[lo:hi].to("cpu", non_blocking=True,
+                                        copy=True) for a in blk.beam])
+            if blk.device.type == "cuda":
+                ready.append(torch.cuda.Event())
+                ready[-1].record(torch.cuda.current_stream(blk.device))
+        for event in ready:
+            event.synchronize()
+        out = []
+        for cid in cids:
+            i, row = divmod(cid, self._rows)
+            lo, lanes = host[i]
+            k = row - lo
+            out.append(type(self._blocks[i].beam)(
+                *(a[k:k + 1].numpy() for a in lanes)))
+        return out
 
     def get_best_path_from(self, snap: ChannelSnapshot) -> dict:
         return best_path(self.info, snap.beam, self._init_log,

@@ -9,10 +9,14 @@ and the GPU dynamic batcher of src/gpu-asr/v1-gpu-kaldi-worker-pool.h
 ``asr_decoder_tpu/serving/protocol.py``, so the JAX package's clients talk
 to it unchanged.
 
-Connections are asyncio coroutines that push PCM into their channel of one
-``BatchedStreamingDecoder``; a device-loop coroutine ticks the arena, each
-tick one batched AM+search dispatch over every channel with a ready chunk.
-Every arena call runs on a one-thread executor (the arena is
+Connections are asyncio coroutines that queue their PCM pushes for their
+channels of one ``BatchedStreamingDecoder``; a device-loop coroutine serves
+every push queued when the device thread comes free in one round there:
+one fbank over all the round's frames, the arena's ticks while any of its
+channels has a ready chunk (each tick one batched AM+search dispatch over
+every such channel), then every push's endpoint decision and snapshot, the
+snapshots copied to the host together.  A round never waits for more
+pushes.  Every arena call runs on that one-thread executor (the arena is
 single-writer); result building (traceback, lattice, n-best) runs on a
 result pool over host snapshots.
 
@@ -35,6 +39,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import suppress
 from dataclasses import dataclass
+
+import numpy as np
 
 from asr_decoder_tpu_torch.serving.protocol import (C2SPackage, EndFlag,
                                                     NbestResult, S2CPackage,
@@ -80,6 +86,18 @@ class SocketConfig:
 
 
 @dataclass
+class _Push:
+    """A packet's PCM, queued for the device thread's next round;
+    ``future`` gets (endpoint detected, snapshot)."""
+    cid: int
+    samples: np.ndarray
+    eos: bool
+    req: object
+    submitted: float               # perf_counter at the queueing
+    future: asyncio.Future
+
+
+@dataclass
 class UttStats:
     """Per-utterance timing (ref: ThreadTimeInfo semantics): the audio
     pushed, and the server's time on its packets (their ``request`` spans:
@@ -109,12 +127,14 @@ class AsrServer:
                                                 self.config.num_channels)
         self._chan_sem = asyncio.Semaphore(self.config.num_channels)
         self._work = asyncio.Event()
-        self._chan_events: dict[int, asyncio.Event] = {}
+        self._queue: list[_Push] = []
         self._server: asyncio.AbstractServer | None = None
         self._device_task: asyncio.Task | None = None
         self.total = UttStats()
         self.dispatches = 0       # batched device steps
         self.chunks_decoded = 0   # channel-chunks consumed across dispatches
+        self.rounds = 0           # device-thread rounds
+        self.pushes_served = 0    # pushes served across rounds
         self._connections = itertools.count()   # serials of the requests' req
 
     async def _run(self, name: str, fn, *args, req=None):
@@ -158,36 +178,85 @@ class AsrServer:
             await self._server.serve_forever()
 
     # -- the batched device loop (ref DynamicBatcher compute cycle) --------
+    def _submit(self, cid: int, samples: np.ndarray, eos: bool, req
+                ) -> asyncio.Future:
+        """Queue a push for the next round; the future gets its (endpoint
+        detected, snapshot)."""
+        fut = asyncio.get_running_loop().create_future()
+        self._queue.append(_Push(cid, samples, eos, req, time.perf_counter(),
+                                 fut))
+        self._work.set()
+        return fut
+
     async def _device_loop(self) -> None:
-        """Tick the arena whenever any connection has pushed work: each
-        step() is one batched dispatch over every ready channel."""
+        """Whenever pushes are queued, serve all of them in one round on
+        the device thread."""
+        loop = asyncio.get_running_loop()
         while True:
             await self._work.wait()
             self._work.clear()
-            while True:
-                advanced = await self._run("device/step", self._batcher.step)
-                if not advanced:
-                    break
-                self.dispatches += 1
-                self.chunks_decoded += len(advanced)
-                for cid in advanced:
-                    ev = self._chan_events.get(cid)
-                    if ev is not None:
-                        ev.set()
+            pushes, self._queue = self._queue, []
+            if pushes:
+                await loop.run_in_executor(self._pool, self._round, pushes,
+                                           loop)
 
-    async def _pump(self, cid: int, req=None) -> None:
-        """Block until the device loop has consumed every ready chunk of
-        this channel (clear-before-check: step() completes on the same
-        1-thread executor as ready(), so a set() between our check and
-        wait() is always observed)."""
-        ev = self._chan_events[cid]
-        while True:
-            ev.clear()
-            if not await self._run("device/ready", self._batcher.ready, cid,
-                                   req=req):
-                return
-            self._work.set()
-            await ev.wait()
+    def _round(self, pushes: list[_Push], loop) -> None:
+        """Serve ``pushes`` (one a channel) on the device thread and
+        resolve their futures in one callback on ``loop``.  Each push gets
+        its own ``device/<call>`` spans under its ``req``; the work the
+        round shares (the fbank, the ticks, the snapshots' copy) is
+        recorded with none, and the whole round as ``round``."""
+        start = time.perf_counter()
+        # a push whose handler was cancelled may have lost its channel
+        pushes = [p for p in pushes if not p.future.cancelled()]
+        if not pushes:
+            return
+        for p in pushes:
+            profiling.record("device/queue", p.submitted, start, p.req)
+        try:
+            answers = self._serve(pushes)
+        except Exception as exc:       # every push of the round sees it
+            LOG.exception("device round of %d pushes failed", len(pushes))
+            loop.call_soon_threadsafe(_fail, pushes, exc)
+        else:
+            loop.call_soon_threadsafe(_resolve, pushes, answers)
+        profiling.record("round", start, time.perf_counter())
+        self.rounds += 1
+        self.pushes_served += len(pushes)
+
+    def _serve(self, pushes: list[_Push]) -> list[tuple]:
+        """Push every chunk, tick while any of their channels has a ready
+        chunk, then (endpoint detected, snapshot) for each push."""
+        b = self._batcher
+        with profiling.span("device/push"):
+            fbanks = b.fbank_many([(p.cid, p.samples, p.eos)
+                                   for p in pushes])
+        for p, fbank in zip(pushes, fbanks):
+            with profiling.span("device/push", p.req):
+                b.push(p.cid, p.samples, p.eos, fbank=fbank)
+        ready = []
+        for p in pushes:
+            with profiling.span("device/ready", p.req):
+                if b.ready(p.cid):
+                    ready.append(p.cid)
+        while ready:
+            with profiling.span("device/step"):
+                advanced = b.step()
+            self.dispatches += 1
+            self.chunks_decoded += len(advanced)
+            with profiling.span("device/ready"):
+                ready = [cid for cid in advanced if b.ready(cid)]
+        with profiling.span("device/snapshot"):
+            beams = b.copy_beams([p.cid for p in pushes])
+        answers = []
+        for p, beam in zip(pushes, beams):
+            endpoint = False
+            if not p.eos:
+                with profiling.span("device/endpoint_detected", p.req):
+                    endpoint = b.endpoint_detected(p.cid)
+            with profiling.span("device/snapshot", p.req):
+                answers.append((endpoint, b.snapshot(p.cid, beam)))
+        return answers
 
     # -- per-connection task loop (ref: v2-asr-task.h:57-327) --------------
     def _tune_socket(self, writer: asyncio.StreamWriter) -> None:
@@ -248,23 +317,16 @@ class AsrServer:
                             await self._chan_sem.acquire()
                         cid = await self._run("device/acquire",
                                               self._batcher.acquire, req=req)
-                        self._chan_events[cid] = asyncio.Event()
                         stats = UttStats()
                         sr = pkg.sample_rate.hz
                         prefix_words, prefix_align, prefix_frames = [], [], 0
                     samples = pkg.samples()
                     stats.wav_seconds += len(samples) / sr
-                    await self._run("device/push", self._batcher.push, cid,
-                                    samples, bool(pkg.end_flag), req=req)
+                    # pushed, ticked and snapshotted in a device round;
+                    # the reply is built off the snapshot
                     with profiling.span("pump"):
-                        await self._pump(cid, req)
-                    endpoint = (not pkg.end_flag and await self._run(
-                        "device/endpoint_detected",
-                        self._batcher.endpoint_detected, cid, req=req))
-                    # snapshot under the device writer, build results off it
-                    snap = await self._run("device/snapshot",
-                                           self._batcher.snapshot, cid,
-                                           req=req)
+                        endpoint, snap = await self._submit(
+                            cid, samples, bool(pkg.end_flag), req)
                     reply, seg_words, seg_align = await self._run_result(
                         self._results, snap, pkg,
                         bool(pkg.end_flag) or endpoint, prefix_words,
@@ -302,7 +364,6 @@ class AsrServer:
     async def _close_channel(self, cid: int, req=None) -> None:
         await self._run("device/release", self._batcher.release, cid,
                         req=req)
-        self._chan_events.pop(cid, None)
         self._chan_sem.release()
 
     def _results(self, snap: ChannelSnapshot, pkg: C2SPackage, final: bool,
@@ -364,6 +425,18 @@ class AsrServer:
                 reply.lattice = lat.to_bytes()
                 reply.do_rescore = self.config.advertise_rescore
         return reply, seg_words, seg_align
+
+
+def _resolve(pushes: list[_Push], answers: list[tuple]) -> None:
+    for p, answer in zip(pushes, answers):
+        if not p.future.done():
+            p.future.set_result(answer)
+
+
+def _fail(pushes: list[_Push], exc: Exception) -> None:
+    for p in pushes:
+        if not p.future.done():
+            p.future.set_exception(exc)
 
 
 def _timed(queue: str, name: str, req, submitted: float, fn, args):

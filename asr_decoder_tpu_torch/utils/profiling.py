@@ -29,11 +29,15 @@ The names, each written at its call site:
 * ``serving/server.py``: ``request`` (a packet's handling, from its read to
   its reply's write and, after a final, its channel's release; ``req`` =
   (connection serial, packet ``n``)), and inside it ``admission`` (the wait
-  for a free channel), ``pump`` (until the arena has consumed the push) and
-  ``write``; on the device thread ``device/queue`` (submit to start) before
-  each ``device/<call>`` (``push``, ``ready``, ``endpoint_detected``,
-  ``snapshot``, ``step``, ``acquire``, ``release``, ``init_decoding``); on
-  a result thread ``results/queue`` and ``results/build``, inside it
+  for a free channel), ``pump`` (until a device round has served the push)
+  and ``write``; on the device thread ``device/queue`` (submit to start:
+  of a push, to its round's start) before each ``device/<call>``
+  (``push``, ``ready``, ``endpoint_detected``, ``snapshot``, ``step``,
+  ``acquire``, ``release``, ``init_decoding``), and ``round`` (a round of
+  queued pushes, recorded once it has ended: the parent of none; the work
+  its pushes share is ``device/push``, ``device/ready`` and
+  ``device/snapshot`` with no ``req``, its ticks ``device/step``); on a
+  result thread ``results/queue`` and ``results/build``, inside it
   ``result/traceback`` and ``result/align``.
 * ``serving/batcher.py`` ``step``: ``tick/pack``, ``tick/launch``,
   ``tick/wait`` (the previous tick's log copy), ``tick/deliver``.

@@ -288,8 +288,9 @@ def test_server_calls_the_arena_on_its_device_thread(vad_infos):
             await server.stop()
 
     replies, arena = asyncio.run(run())
-    writers = {"acquire", "push", "step", "ready", "endpoint_detected",
-               "snapshot", "init_decoding", "release"}
+    writers = {"acquire", "fbank_many", "push", "step", "ready",
+               "endpoint_detected", "copy_beams", "snapshot",
+               "init_decoding", "release"}
     readers = {"get_best_path_from", "get_nbest_from", "get_lattice_from"}
     called = {name for name, _, _ in arena.calls}
     assert writers <= called and called <= writers | readers, called
@@ -318,6 +319,92 @@ def test_server_calls_the_arena_on_its_device_thread(vad_infos):
                 range(len(rs))] == flags
         assert [snaps[i].frames_decoded for i in ends] == \
             [frames for _, _, frames in segs]
+
+
+def test_server_rounds_equal_sessions_and_the_arena(vad_infos):
+    """Eight concurrent streams, five of them endpointed by the energy VAD,
+    served in device rounds (several pushes a round): every reply's end
+    flag and words, and the frames decoded under it, equal each stream
+    decoded alone by a session and the arena driven push by push through
+    its kept ``push`` / ``step`` / ``snapshot``.  (Each stream has its own
+    number of pushes, which maps the server's channels to the streams.)"""
+    _, pinfo = vad_infos
+    waves = [speech_sil_speech(50 + i, (4800 + 1600 * i, 8000, 4800))
+             if i % 3 else speech_sil_speech(50 + i, (4000 + 1600 * i, 0,
+                                                      0))
+             for i in range(8)]
+    assert len({-(-len(w) // PUSH) for w in waves}) == len(waves)
+    pcms = [w.astype(np.int16).astype(np.float32) for w in waves]
+
+    def answer(eos, ep, prefix, words, frames):
+        flag = (EndFlag.END if eos else EndFlag.MIDDLEEND if ep
+                else EndFlag.NOEND)
+        return flag, prefix + words, frames
+
+    sessions = []
+    for w in pcms:
+        s, prefix, out = OnlineDecoderSession(pinfo), [], []
+        for lo in range(0, len(w), PUSH):
+            eos = lo + PUSH >= len(w)
+            s.process_data(w[lo:lo + PUSH], eos=eos)
+            ep = not eos and s.endpoint_detected()
+            words = s.get_best_path()["words"]
+            out.append(answer(eos, ep, prefix, words, s.num_frames_decoded))
+            if ep:
+                prefix = prefix + words
+                s.init_decoding()
+        sessions.append(out)
+    assert sum(a[0] == EndFlag.MIDDLEEND for o in sessions for a in o) >= 5
+
+    eng = BatchedStreamingDecoder(pinfo, num_channels=8)
+    cids = [eng.acquire() for _ in pcms]
+    arena, prefixes = [[] for _ in pcms], [[] for _ in pcms]
+    for lo in range(0, max(map(len, pcms)), PUSH):
+        for i, (cid, w) in enumerate(zip(cids, pcms)):
+            if lo >= len(w):
+                continue
+            eos = lo + PUSH >= len(w)
+            eng.push(cid, w[lo:lo + PUSH], eos)
+            while eng.ready(cid):
+                eng.step()
+            ep = not eos and eng.endpoint_detected(cid)
+            snap = eng.snapshot(cid)
+            words = eng.get_best_path_from(snap)["words"]
+            arena[i].append(answer(eos, ep, prefixes[i], words,
+                                   snap.frames_decoded))
+            if ep:
+                prefixes[i] = prefixes[i] + words
+                eng.init_decoding(cid)
+    assert arena == sessions
+
+    async def run():
+        server = AsrServer(pinfo, SocketConfig(port=0, num_channels=8))
+        rec = server._batcher = RecordingArena(server._batcher)
+        host, port = await server.start()
+        try:
+            async def one(w):
+                c = AsyncAsrClient(host, port)
+                await c.connect()
+                try:
+                    pcm = w.astype(np.int16)
+                    return [await c.send_chunk(pcm[lo:lo + PUSH],
+                                               end=lo + PUSH >= len(pcm))
+                            for lo in range(0, len(pcm), PUSH)]
+                finally:
+                    await c.close()
+            return (await asyncio.gather(*(one(w) for w in waves)), rec,
+                    server)
+        finally:
+            await server.stop()
+
+    replies, rec, server = asyncio.run(run())
+    assert server.pushes_served == sum(map(len, replies))
+    assert server.rounds < server.pushes_served     # rounds of several
+    snaps = {len(v): v for v in rec.snaps.values()}
+    for rs, want in zip(replies, sessions):
+        got = [(r.end_flag, r.results[0].words, s.frames_decoded)
+               for r, s in zip(rs, snaps[len(rs)])]
+        assert got == want
 
 
 def test_clg_server_endpoints_without_alignment():

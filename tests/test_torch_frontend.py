@@ -116,3 +116,63 @@ def test_pitch_not_ported():
                                atol=1e-3)
     np.testing.assert_allclose(got[..., 16:], want[..., 16:], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("stack", ["fbank", "fbank+cmvn+pitch+delta"])
+def test_fbank_many_equals_each_stream_alone(stack):
+    """Streams fed together through ``pipeline.fbank_many`` and their own
+    ``finish`` give the features each one's ``accept`` gives alone: pushes
+    of mixed lengths, an empty push, pushes shorter than a window (the
+    carry crossing them), a short final push and EOS at different times.
+    Both sides are fp32 over the same samples; the batched fbank stacks
+    every stream's frames into one product, so a frame's sums may round
+    differently: within a few fp32 ulps of the ~1e1 log-mel values."""
+    from asr_decoder_tpu_torch.frontend import pitch as PPI
+    kw = {}
+    if stack != "fbank":
+        kw = dict(pitch_cfg=PPI.PitchConfig(),
+                  ppitch_cfg=PPI.ProcessPitchConfig(),
+                  delta_cfg=PP.DeltaConfig(2, 2), cmvn_cfg=PF.CmvnConfig())
+
+    def front():
+        return PP.StreamingFrontend(PF.FbankConfig(num_bins=16), **kw)
+
+    # each stream's push lengths; the last push of each carries EOS
+    pushes = [[3200, 0, 3200, 1700, 3200, 900],
+              [100, 150, 3200, 3200, 3200, 3200, 3200],
+              [5000, 3200, 250],
+              [3200, 3200, 3200, 3200, 3200, 3200, 3200, 80]]
+    waves = [_wave(20 + i, n=sum(p), batch=1) for i, p in enumerate(pushes)]
+    batched = [front() for _ in pushes]
+    alone = [front() for _ in pushes]
+    got = [[] for _ in pushes]
+    want = [[] for _ in pushes]
+    at = [0] * len(pushes)
+    for k in range(max(map(len, pushes))):
+        live = [i for i, p in enumerate(pushes) if k < len(p)]
+        chunks = [waves[i][:, at[i]:at[i] + pushes[i][k]] for i in live]
+        ends = [k == len(pushes[i]) - 1 for i in live]
+        fbanks = PP.fbank_many([batched[i] for i in live], chunks, ends)
+        for i, pcm, end, fb in zip(live, chunks, ends, fbanks):
+            assert fb.shape[0] == 1 and fb.shape[2] == 16
+            got[i].append(batched[i].finish(pcm, fb, end))
+            want[i].append(alone[i].accept(pcm, end))
+            at[i] += pushes[i][k]
+    for g, w in zip(got, want):
+        assert [x.shape for x in g] == [x.shape for x in w]
+        g, w = np.concatenate(g, axis=1), np.concatenate(w, axis=1)
+        assert g.shape[1] > 20
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-5)
+
+
+def test_compute_fbank_is_the_plain_arithmetic_bit_for_bit():
+    """``compute_fbank`` (its per-frame arithmetic now in ``fbank_frames``,
+    which the served path's batched fbank shares) gives, bit for bit, what
+    the benchmark's plain copy of that arithmetic gives on the CPU."""
+    from benchmark.reference import fbank as ref
+    for bins in (16, 80):
+        wave = _wave(5, n=16000, batch=3)
+        got = PF.compute_fbank(PF.FbankConfig(num_bins=bins), wave)
+        want = ref.fbank(torch.from_numpy(wave), bins)
+        assert got.shape == want.shape == (3, 98, bins)
+        assert torch.equal(got, want)

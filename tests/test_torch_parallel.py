@@ -253,6 +253,51 @@ def test_dp_arena_slots_and_nbest():
     assert_same_paths(nbest, want_nbest)
 
 
+def test_dp_arena_round_calls_equal_the_kept_calls():
+    """A server round's calls on a dp arena of two blocks — one fbank for
+    every push (``fbank_many``, then ``push(..., fbank=)``) and one beam
+    copy a block (``copy_beams``, then ``snapshot(cid, beam)``), channels
+    in no order of blocks — give each channel the snapshot the kept
+    per-channel ``push`` and ``snapshot`` give: the same frames, tokens
+    and words, and costs within fp32 rounding (the stacked fbank's mel
+    product may sum a frame in another order than a lone stream's)."""
+    pinfo = port_info(make_info(seed=6))
+    waves = [make_wave(400 + s, n=5600) for s in range(4)]
+    order = [3, 0, 2, 1]
+
+    def run(batched):
+        eng = BatchedStreamingDecoder(pinfo, 4, mesh=make_mesh(CPU8[:2]))
+        cids = [eng.acquire() for _ in waves]
+        snaps = []
+        for lo in range(0, 5600, 1600):
+            pushes = [(cids[i], waves[i][lo:lo + 1600], lo + 1600 >= 5600)
+                      for i in order]
+            fbanks = (eng.fbank_many(pushes) if batched
+                      else [None] * len(pushes))
+            for (cid, pcm, eos), fbank in zip(pushes, fbanks):
+                eng.push(cid, pcm, eos, fbank=fbank)
+            while eng.pending_work():
+                eng.step()
+            beams = (eng.copy_beams([cid for cid, _, _ in pushes])
+                     if batched else [None] * len(pushes))
+            snaps.append([eng.snapshot(cid, beam) for (cid, _, _), beam
+                          in zip(pushes, beams)])
+        return eng, snaps
+    (eng, got), (_, want) = run(True), run(False)
+    for gs, ws in zip(got, want):
+        for g, w in zip(gs, ws):
+            assert g.frames_decoded == w.frames_decoded
+            for a, b in zip(g.beam, w.beam):
+                assert a.shape == b.shape and a.dtype == b.dtype
+                if a.dtype.kind == "f":
+                    np.testing.assert_allclose(a, b, rtol=1e-6)
+                else:
+                    np.testing.assert_array_equal(a, b)
+            assert (eng.get_best_path_from(g)["words"]
+                    == eng.get_best_path_from(w)["words"])
+    assert got[-1][0].frames_decoded > 0
+
+
 # -- the tp-sharded AM --------------------------------------------------------
 
 def test_tp_am_matches_jax_and_decodes_the_same():

@@ -211,3 +211,72 @@ def test_served_packets_carry_their_spans():
         assert t.parent == "device/step" and t.thread == device
         assert any(st.start <= t.start <= t.end <= st.end for st in steps)
     assert not [s for s in got if s.name == "capture"]
+
+
+def test_a_round_serves_every_queued_push():
+    """Pushes queued before the device thread comes free are served in one
+    round: per push its ``device/queue`` (to the round's start),
+    ``device/push``, ``device/ready``, ``device/endpoint_detected`` (not
+    for a final push) and ``device/snapshot`` under its ``req``, on the
+    device thread with no parent; the round's shared fbank and snapshot
+    copy with no ``req``; one ``round`` span around them all; ``rounds``
+    and ``pushes_served`` up by 1 and k; and each push's snapshot equal to
+    ``snapshot(cid)`` taken after the round, and still so after the next
+    round has stepped the arena on."""
+    info = port_info(make_info())
+    k = 3
+    waves = [make_wave(40 + i, n=3200) for i in range(k)]
+
+    async def run():
+        server = AsrServer(info, SocketConfig(port=0, num_channels=k))
+        b = server._batcher
+        cids = [b.acquire() for _ in range(k)]
+        futures = [server._submit(cid, w, i == k - 1, ("q", i))
+                   for i, (cid, w) in enumerate(zip(cids, waves))]
+        await server.start()
+        try:
+            answers = await asyncio.gather(*futures)
+            device = server._pool.submit(threading.get_ident).result()
+            after = [server._pool.submit(b.snapshot, c).result()
+                     for c in cids]
+            # the arena restarts a search in place and steps on: the
+            # snapshots' host copies stay put
+            server._pool.submit(b.init_decoding, cids[0]).result()
+            more = [server._submit(c, w, False, ("r", i)) for i, (c, w)
+                    in enumerate(zip(cids[:-1], waves))]
+            await asyncio.gather(*more)
+            return server, answers, after, device
+        finally:
+            await server.stop()
+
+    t0 = time.perf_counter()
+    server, answers, after, device = asyncio.run(run())
+    got = profiling.spans(t0, time.perf_counter())
+    assert (server.rounds, server.pushes_served) == (2, 2 * k - 1)
+    assert server.dispatches >= 1
+    rnd, _ = [s for s in got if s.name == "round"]
+    assert rnd.req is None and rnd.parent is None and rnd.thread == device
+    for i in range(k):
+        mine = [s for s in got if s.req == ("q", i)]
+        names = sorted(s.name for s in mine)
+        want = ["device/push", "device/queue", "device/ready",
+                "device/snapshot"]
+        if i < k - 1:
+            want.append("device/endpoint_detected")
+        assert names == sorted(want), names
+        for s in mine:
+            assert s.thread == device and s.parent is None
+            assert rnd.start <= s.start <= s.end <= rnd.end or (
+                s.name == "device/queue" and s.end == rnd.start)
+    shared = [s.name for s in got if s.req is None and s.thread == device
+              and s.name in ("device/push", "device/snapshot")
+              and rnd.start <= s.start <= rnd.end]
+    assert sorted(shared) == ["device/push", "device/snapshot"]
+    assert all(not p for p in (s.parent for s in got if s.name in
+                               ("device/step", "round")))
+    for (endpoint, snap), want in zip(answers, after):
+        assert endpoint is False
+        assert snap.frames_decoded == want.frames_decoded > 0
+        for a, b in zip(snap.beam, want.beam):
+            np.testing.assert_array_equal(a, b)
+        assert len(snap.chunk_logs) == len(want.chunk_logs)
