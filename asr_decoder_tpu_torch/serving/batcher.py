@@ -4,7 +4,9 @@ Port of ``asr_decoder_tpu/serving/batcher.py``: many streaming channels
 packed into one AM forward + one search advance per tick (ref:
 src/gpu-asr/v1-gpu-kaldi-worker-pool.h:20-202,
 BatchedThreadedNnet3CudaOnlinePipeline + DynamicBatcher).  Channel slots
-have an explicit acquire/release lifecycle.
+have an explicit acquire/release lifecycle.  This is the port's one
+streaming decode path: ``OnlineDecoderSession`` (``serving/session.py``)
+is a one-channel arena on ``info.device``.
 
 Per-channel device state lives in fixed-shape arenas on ``info.device`` —
 beam i32/f32[B,K], LSTM carries f32[B,H] — and idle channels ride along
@@ -270,6 +272,11 @@ class BatchedStreamingDecoder:
         return ch is not None and self.info.endpoint(ch.frames_decoded,
                                                      ch.trailing_sil)
 
+    def frames_decoded(self, cid: int) -> int:
+        """Frames channel ``cid`` has decoded since its search started."""
+        self._flush_logs()
+        return self._channels[cid].frames_decoded
+
     # -- streaming input (host frontend, ref DynamicBatcher::Push) ---------
     def _open(self, cid: int) -> _Channel:
         ch = self._channels[cid]
@@ -299,7 +306,7 @@ class BatchedStreamingDecoder:
                  else ch.front.finish(pcm, fbank, end=eos))[0]
         spliced = ch.featbuf.accept(feats, end=eos)
         # plain skip drops frames here; skip_copy subsamples inside
-        # am_forward — the same split as session.py
+        # am_forward — the same split as the JAX session
         skip = info.am_config.skip
         if skip and spliced.shape[0] and not info.am_config.skip_copy:
             sel = (np.arange(spliced.shape[0]) + ch.skip_phase) \

@@ -8,9 +8,13 @@ src/v1-asr/kaldi-v1-asr-online.h:235): chunked 16-bit PCM in → features
 partial/final text, n-best, lattice; endpoint detection from the energy
 VAD's trailing silence (``use_energy_vad``); mid-stream re-initialisation
 after an endpoint (``init_decoding``, ref ``InitDecoding(frame_offset)``,
-kaldi-online-nnet3-my-decoder.h:301-324).  Device work runs in fixed
-``chunk_frames`` windows on ``info.device``, under
-``torch.inference_mode()``.
+kaldi-online-nnet3-my-decoder.h:301-324).
+
+A session is the one-channel view of the arena
+(``serving/batcher.py:BatchedStreamingDecoder``): the port streams by one
+rule in one place.  This module holds what both share: the configs, the
+``FeatureBuffer``, the model state (``OnlineDecoderInfo``) and the host
+helpers that turn a channel's logs into results.
 
 All three graph types are ported: ``hclg`` (``TorchBeamSearch``), ``clg``
 (``TorchClgBeamSearch``) and ``biglm-hclg`` (``TorchBigLmBeamSearch``).
@@ -38,8 +42,7 @@ from asr_decoder_tpu_torch.frontend.fbank import CmvnConfig, FbankConfig
 from asr_decoder_tpu_torch.frontend.pipeline import StreamingFrontend
 from asr_decoder_tpu_torch.frontend.pitch import ProcessPitchConfig
 from asr_decoder_tpu_torch.models.nnet import (AmConfig, GraphedAm, Nnet,
-                                               blank_frame_mask,
-                                               require_streaming)
+                                               blank_frame_mask)
 from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
 from asr_decoder_tpu_torch.ops.beamsearch_biglm import TorchBigLmBeamSearch
 from asr_decoder_tpu_torch.ops.beamsearch_clg import TorchClgBeamSearch
@@ -231,9 +234,6 @@ class OnlineDecoderInfo:
         return (frames_decoded >= cfg.min_endpoint_frames
                 and trailing_sil >= cfg.endpoint_sil_frames)
 
-    def init_am_state(self, batch: int) -> list[dict]:
-        return [l.init_state(batch, self.device) for l in self.am_layers]
-
     def score(self, feats: torch.Tensor, am_state, valid: np.ndarray,
               layers=None):
         """One chunk through the AM (``am_layers``, or their replica
@@ -372,29 +372,23 @@ def host_log(log):
 class OnlineDecoderSession:
     """One streaming utterance (ref: OnlineClgLatticeFastDecoder session
     methods ProcessData/GetLattice/GetBestPathTxt/GetNbestTxt/
-    EndpointDetected, kaldi-online-nnet3-my-decoder.h:330-344)."""
+    EndpointDetected, kaldi-online-nnet3-my-decoder.h:330-344): the one
+    channel of a one-channel ``BatchedStreamingDecoder`` on ``info.device``,
+    so a session streams by the arena's code."""
 
     def __init__(self, info: OnlineDecoderInfo):
-        require_streaming(info.nnet, "OnlineDecoderSession")
+        from asr_decoder_tpu_torch.serving.batcher import \
+            BatchedStreamingDecoder
         self.info = info
-        self._front = info.make_frontend(batch=1)
-        self._vad = info.make_vad()
-        self.reset()
+        self._arena = BatchedStreamingDecoder(info, 1)
+        self._cid = self._arena.acquire()
 
     # -- lifecycle ---------------------------------------------------------
     def reset(self) -> None:
-        """Full per-utterance reset (ref: Reset + ResetRnnBuffer)."""
-        info = self.info
-        self._front.reset()
-        if self._vad is not None:
-            self._vad.reset()
-        self._trailing_sil = 0
-        self._featbuf = FeatureBuffer(info.left, info.right,
-                                      info.splice_offsets)
-        self._am_state = info.init_am_state(1)
-        self._skip_phase = 0
-        self._pending: list[np.ndarray] = []
-        self.init_decoding()
+        """Full per-utterance reset (ref: Reset + ResetRnnBuffer): a fresh
+        channel."""
+        self._arena.release(self._cid)
+        self._cid = self._arena.acquire()
 
     def init_decoding(self) -> None:
         """Restart the search only, keeping feature/AM streaming state —
@@ -402,94 +396,43 @@ class OnlineDecoderSession:
         not yet scored stay queued for the next segment, as in the
         arena's ``init_decoding`` (the JAX session drops them, so its
         segments after an endpoint differ from its server's)."""
-        beam, init_log = self.info.search.init_state(1)
-        self._beam = beam
-        self._init_log = host_log(init_log)
-        self._chunk_logs: list = []
-        self._loglikes: list[np.ndarray] = []
-        self.num_frames_decoded = 0
+        self._arena.init_decoding(self._cid)
+
+    @property
+    def num_frames_decoded(self) -> int:
+        return self._arena.frames_decoded(self._cid)
 
     # -- streaming input ---------------------------------------------------
     def process_data(self, pcm: np.ndarray, eos: bool = False) -> None:
         """Push a chunk of 16-bit-scale PCM samples f32/int16[n]
-        (ref: ProcessData)."""
-        info = self.info
-        pcm = np.asarray(pcm, np.float32).reshape(1, -1)
-        self._trailing_sil = trailing_silence(self._vad, pcm, eos,
-                                              self._trailing_sil)
-        feats = self._front.accept(pcm, end=eos)[0]
-        spliced = self._featbuf.accept(feats, end=eos)
-        # frame subsampling with a persistent phase so chunk boundaries
-        # don't change which frames are scored (ref _skip, nnet-nnet.cc)
-        skip = info.am_config.skip
-        if skip and spliced.shape[0] and not info.am_config.skip_copy:
-            sel = (np.arange(spliced.shape[0]) + self._skip_phase) \
-                % (skip + 1) == 0
-            self._skip_phase = (self._skip_phase + spliced.shape[0]) \
-                % (skip + 1)
-            spliced = spliced[sel]
-        if spliced.shape[0]:
-            self._pending.append(spliced)
-        self._drain(flush=eos)
-
-    def _drain(self, flush: bool) -> None:
-        """Score + search pending frames in fixed-size device chunks."""
-        C = self.info.config.chunk_frames
-        n = sum(p.shape[0] for p in self._pending)
-        while n >= C or (flush and n > 0):
-            buf = np.concatenate(self._pending, axis=0)
-            take, rest = buf[:C], buf[C:]
-            self._pending = [rest] if rest.shape[0] else []
-            n = rest.shape[0]
-            valid = take.shape[0]
-            if valid < C:  # EOS flush: repeat-pad, mask in the search
-                take = np.concatenate(
-                    [take, np.repeat(take[-1:], C - valid, axis=0)], axis=0)
-            self._advance(take[None], valid)
-
-    @torch.inference_mode()
-    def _advance(self, feats: np.ndarray, valid: int) -> None:
-        info = self.info
-        loglikes, self._am_state, mask = info.score(
-            torch.from_numpy(feats).to(info.device), self._am_state,
-            np.array([valid]))
-        self._beam, log = info.search.advance(self._beam, loglikes, mask)
-        # host copy once per chunk: partial tracebacks walk host memory
-        self._chunk_logs.append(host_log(log))
-        self._loglikes.append(loglikes[0, :valid].cpu().numpy())
-        self.num_frames_decoded += valid
+        (ref: ProcessData) and decode every full chunk (all at ``eos``,
+        after which the session takes no input until ``reset``)."""
+        self._arena.push(self._cid, pcm, eos)
+        self._arena.drain()
 
     # -- results -----------------------------------------------------------
     def get_best_path(self) -> dict:
         """Best path so far (partial before EOS) — words, ilabels, cost
         (ref: GetBestPath/GetBestPathTxt)."""
-        return best_path(self.info, self._beam, self._init_log,
-                         self._chunk_logs)
+        return self._arena.get_best_path(self._cid)
 
     def get_best_path_txt(self) -> str:
-        res = self.get_best_path()
-        return " ".join(self.info.words.words(res.get("words", [])))
+        return self._arena.get_best_path_txt(self._cid)
 
     def get_word_alignment(self, frame_offset: int = 0
                            ) -> list[tuple[str, float, float]]:
         """Per-word time spans [(word, begin_s, end_s)] of the best path
         (ref: AlignTime, net-data-package.h:210); raises for ``clg``."""
-        return word_alignment(self.info, self.get_best_path(), frame_offset)
+        return self._arena.get_word_alignment(self._cid, frame_offset)
 
     def get_lattice(self, determinize: bool = True):
         """Raw (or determinized) lattice of the utterance so far
         (ref: GetLattice; GetRawLattice, online-decoder-base-inl.h:869-977)."""
-        logs = merge_logs(self._chunk_logs)
-        if logs is None:
-            return None
-        lls = np.concatenate(self._loglikes, axis=0)[None]
-        return lattice_from_logs(self.info, self._init_log, logs, lls,
-                                 determinize)
+        return self._arena.get_lattice(self._cid, determinize)
 
     def get_nbest(self, n: int) -> list[dict]:
         """n-best word sequences with costs (ref: GetNbest/GetNbestTxt)."""
-        return nbest_from_lattice(self.info,
-                                  self.get_lattice(determinize=True), n)
+        return self._arena.get_nbest(self._cid, n)
 
     def get_nbest_txt(self, n: int) -> list[str]:
         return [r["text"] for r in self.get_nbest(n)]
@@ -499,5 +442,4 @@ class OnlineDecoderSession:
         """True when trailing silence meets the endpoint rule (ref:
         EndpointDetected, kaldi-online-nnet3-my-decoder.h:344; needs
         use_energy_vad)."""
-        return self.info.endpoint(self.num_frames_decoded,
-                                  self._trailing_sil)
+        return self._arena.endpoint_detected(self._cid)

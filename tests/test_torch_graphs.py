@@ -217,12 +217,13 @@ def test_score_state_outlives_the_next_chunk():
         (2, C, info.am_layers[0].input_dim)).astype(np.float32))
     valid = np.array([C, C - 4])
     with torch.inference_mode():
-        st0 = info.init_am_state(2)
+        st0 = [l.init_state(2, info.device) for l in info.am_layers]
         y1, st1, mask = info.score(x, st0, valid)
         kept = (y1.clone(), [{k: v.clone() for k, v in s.items()}
                              for s in st1])
         info.score(x.flip(1), st1, valid)
-        ey, est = PN.am_forward(info.am_layers, x, info.init_am_state(2))
+        ey, est = PN.am_forward(info.am_layers, x, [
+            l.init_state(2, info.device) for l in info.am_layers])
     assert mask[1].sum() == C - 4
     assert torch.equal(y1, kept[0]) and torch.equal(y1, ey)
     for now, was, eager in zip(st1, kept[1], est):

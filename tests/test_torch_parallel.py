@@ -324,7 +324,8 @@ def test_tp_am_matches_jax_and_decodes_the_same():
         blocks, _ = sharded_forward(model, torch.from_numpy(feats))
         ll = gather_batch(blocks, "cpu")
         ll0, _ = am_forward(pinfo.am_layers, torch.from_numpy(feats),
-                            pinfo.init_am_state(B))
+                            [l.init_state(B, pinfo.device)
+                             for l in pinfo.am_layers])
     np.testing.assert_allclose(ll.numpy(), np.asarray(jll), rtol=1e-5,
                                atol=1e-5)
     np.testing.assert_allclose(ll.numpy(), ll0.numpy(), rtol=1e-5, atol=1e-5)

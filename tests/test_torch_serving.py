@@ -92,12 +92,24 @@ def _decode(session_cls, info, wave, splits=()):
     return s
 
 
-@pytest.mark.parametrize("seed", [0, 3, 7])
-def test_session_matches_jax_session(infos, seed):
+@pytest.mark.parametrize("seed, before", [(0, None), (3, None), (7, None),
+                                          (7, 5)],
+                         ids=["0", "3", "7", "7-after-5"])
+def test_session_matches_jax_session(infos, seed, before):
+    """``before``: the seed of an utterance the port's session decodes
+    first and is ``reset()`` after (the JAX session is a fresh one)."""
     jinfo, pinfo = infos
     wave = make_wave(seed)
     j = _decode(JaxSession, jinfo, wave)
-    p = _decode(OnlineDecoderSession, pinfo, wave, splits=(4000, 9000))
+    if before is None:
+        p = _decode(OnlineDecoderSession, pinfo, wave, splits=(4000, 9000))
+    else:
+        p = _decode(OnlineDecoderSession, pinfo, make_wave(before),
+                    splits=(6000,))
+        assert p.num_frames_decoded > 0
+        p.reset()
+        for lo, hi in ((0, 4000), (4000, 9000), (9000, len(wave))):
+            p.process_data(wave[lo:hi], eos=hi == len(wave))
     assert p.num_frames_decoded == j.num_frames_decoded > 50
     jb, pb = j.get_best_path(), p.get_best_path()
     assert pb["words"] == jb["words"]
