@@ -43,8 +43,22 @@
 //   row whose walk leaves a table, or finds a closure entry above a
 //   carried token, gets length -1.
 //
-// Plain counterpart: asr_decoder_tpu_torch/ops/traceback.py:best_paths_plain
-//   (the same function in PyTorch, vectorised over the rows).
+// Two entries share the row walk (walk_row): traceback_best_paths_i32, the
+// offline batch (every row over all T frames of dense [T, S, B, K] logs),
+// and traceback_rows_i32, the server's round.  serving/logstore.py keeps
+// each channel's logs on the card in a pool of pages of P frames, a row's
+// pages listed in its page table, so a row holds only the frames it has
+// decoded; block i walks row rows[i] over its own first lengths[i] frames,
+// so a round of ~124 replies is one launch and one copy of the paths, in
+// place of a host walk of each reply over logs copied out every tick.
+// store_frames_i32 writes a tick's frames into the pages at each row's own
+// offset and packs the advanced rows' loglikes, in one launch.  The page
+// tables come from the host, which checks every page a launch reads or
+// writes against the pool.
+//
+// Plain counterparts: asr_decoder_tpu_torch/ops/traceback.py:
+//   best_paths_plain (the walk, vectorised over the rows, each over its own
+//   length) and store_frames_plain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -95,13 +109,51 @@ __device__ __forceinline__ bool put_path(const Args& a, int64_t e,
   return true;
 }
 
-__global__ void __launch_bounds__(kThreads) traceback_kernel(Args a) {
+// Where frame t's log words lie.  DenseFrames: the offline [T, S, B, K]
+// logs and [T, B, K] snapshots, at beam row offset `row`.  PagedFrames: the
+// served store's pool, [NP, P, S, K] logs and [NP, P, K] snapshots, frame t
+// of a row in page pages[t / P] at t % P.  log(t) is the offset of stage 0
+// of frame t's words (stage s at + s * stage), snap(t) that of its
+// snapshot's.
+struct DenseFrames {
+  int64_t BK, row;
+  int S;
+  __device__ __forceinline__ int64_t log(int t) const {
+    return t * S * BK + row;
+  }
+  __device__ __forceinline__ int64_t snap(int t) const {
+    return t * BK + row;
+  }
+  __device__ __forceinline__ int64_t stage() const { return BK; }
+};
+
+struct PagedFrames {
+  const int32_t* pages;              // the row's page table
+  int P, S, K;
+  __device__ __forceinline__ int64_t at(int t) const {
+    return static_cast<int64_t>(__ldg(pages + t / P)) * P + t % P;
+  }
+  __device__ __forceinline__ int64_t log(int t) const {
+    return at(t) * S * K;
+  }
+  __device__ __forceinline__ int64_t snap(int t) const { return at(t) * K; }
+  __device__ __forceinline__ int64_t stage() const { return K; }
+};
+
+// One row's walk, called by every thread of the block (the final slot is a
+// block-wide reduction; thread 0 walks): the final slot over the beam row at
+// `row`, then frames T - 1 down to 0 of the logs where `fr` places them,
+// with the prior snapshot of frame 0 and the init closure stage at `init`
+// of the init log; writes out[0, kHead + n).
+template <class Frames>
+__device__ __forceinline__ void walk_row(const Args& a, const Frames& fr,
+                                         int T, int64_t row, int64_t init,
+                                         int32_t* out) {
   __shared__ bool s_fin[kThreads];
   __shared__ float s_cost[kThreads];
   __shared__ int s_idx[kThreads];
-  const int b = blockIdx.x, tid = threadIdx.x;
+  const int tid = threadIdx.x;
   const int K = a.K;
-  const int64_t BK = static_cast<int64_t>(a.B) * K, row = b * int64_t{K};
 
   // ---- 1. the final slot ------------------------------------------------
   bool fin = false;
@@ -129,16 +181,15 @@ __global__ void __launch_bounds__(kThreads) traceback_kernel(Args a) {
   if (tid) return;
 
   // ---- 2. the walk --------------------------------------------------------
-  int32_t* out = a.out + static_cast<int64_t>(b) * (kHead + a.cap);
   int32_t* arcs = out + kHead;
   out[1] = __float_as_int(s_cost[0]);
   out[2] = s_fin[0];
   int slot = s_idx[0];
   int64_t n = 0;
   bool ok = true;
-  for (int t = a.T - 1; t >= 0 && ok; --t) {
-    const int64_t frame = t * a.S * BK + row;
-    const int32_t* prior = (t ? a.snap + (t - 1) * BK : a.isnap) + row;
+  for (int t = T - 1; t >= 0 && ok; --t) {
+    const int64_t frame = fr.log(t), BK = fr.stage();
+    const int32_t* prior = t ? a.snap + fr.snap(t - 1) : a.isnap + init;
     int fi1 = -1;
     if (a.S == 2) {
       fi1 = __ldg(a.aid + frame + BK + slot);
@@ -168,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) traceback_kernel(Args a) {
   }
   // the init closure stage: pre-closure beam = [start] at slot 0
   if (ok && a.Si) {
-    const int fi1 = __ldg(a.iaid + row + slot);
+    const int fi1 = __ldg(a.iaid + init + slot);
     if (fi1 >= 0) {
       const int64_t e = static_cast<int64_t>(a.clo_offset[a.start]) +
                         fi1 % a.C;
@@ -176,6 +227,78 @@ __global__ void __launch_bounds__(kThreads) traceback_kernel(Args a) {
     }
   }
   out[0] = ok ? static_cast<int32_t>(n) : -1;
+}
+
+// The offline batch: row b of the beam, the logs and the init log.
+__global__ void __launch_bounds__(kThreads) traceback_kernel(Args a) {
+  const int b = blockIdx.x;
+  const int64_t row = b * int64_t{a.K};
+  walk_row(a, DenseFrames{static_cast<int64_t>(a.B) * a.K, row, a.S}, a.T,
+           row, row, a.out + static_cast<int64_t>(b) * (kHead + a.cap));
+}
+
+// The served store (serving/logstore.py): block i walks row idx[i][0] of
+// the beam over its first idx[i][1] frames, in the pages idx[i][2...] of
+// the pool, from the one init row every row shares.  idx is i32[n, 2 + M].
+__global__ void __launch_bounds__(kThreads) traceback_rows_kernel(
+    Args a, const int32_t* __restrict__ idx, int M, int P) {
+  const int i = blockIdx.x;
+  const int32_t* ri = idx + static_cast<int64_t>(i) * (2 + M);
+  const int r = __ldg(ri), T = __ldg(ri + 1);
+  int32_t* out = a.out + static_cast<int64_t>(i) * (kHead + a.cap);
+  walk_row(a, PagedFrames{ri + 2, P, a.S, a.K}, T, r * int64_t{a.K}, 0,
+           out);
+}
+
+// The served store's write, one block a (row, frame) of the tick: frame f <
+// valid of block row r of the tick's logs into the row's pages at frame
+// off + f, and the row's loglikes of that frame into row i of a packed
+// copy (the only part of the tick the host reads); (r, off, valid, pages)
+// = idx[i] (i32[n, 3 + M]).  32-bit words; the bytes are the copy's, ~6 K
+// + V words a (row, frame), so it is bandwidth- and launch-sized (~13 MB
+// at 21 rows x 32 frames, K 512, V 2048).
+struct StoreArgs {
+  const int32_t* prev;               // [F, S, B, K] the tick's logs
+  const int32_t* aid;                // [F, S, B, K]
+  const int32_t* snap;               // [F, B, K]
+  const int32_t* snap_cost;          // [F, B, K] (f32 bits)
+  int32_t* store_prev;               // [NP, P, S, K] the pool
+  int32_t* store_aid;                // [NP, P, S, K]
+  int32_t* store_snap;               // [NP, P, K]
+  int32_t* store_cost;               // [NP, P, K]
+  const int32_t* ll;                 // [B, F, V] the tick's loglikes
+  int32_t* packed;                   // [n, F, V]
+  const int32_t* idx;                // [n, 3 + M]
+  int F, S, B, K, V, P, M;
+};
+
+__global__ void __launch_bounds__(kThreads) store_frames_kernel(
+    StoreArgs a) {
+  const int i = blockIdx.x / a.F, f = blockIdx.x % a.F;
+  const int32_t* ri = a.idx + static_cast<int64_t>(i) * (3 + a.M);
+  const int r = __ldg(ri);
+  if (f >= __ldg(ri + 2)) return;
+  const int t = __ldg(ri + 1) + f;
+  const int64_t g = static_cast<int64_t>(__ldg(ri + 3 + t / a.P)) * a.P +
+                    t % a.P;
+  const int64_t K = a.K, BK = a.B * K;
+  for (int s = 0; s < a.S; ++s) {
+    const int64_t src = (int64_t{f} * a.S + s) * BK + r * K;
+    const int64_t dst = (g * a.S + s) * K;
+    for (int k = threadIdx.x; k < a.K; k += kThreads) {
+      a.store_prev[dst + k] = __ldg(a.prev + src + k);
+      a.store_aid[dst + k] = __ldg(a.aid + src + k);
+    }
+  }
+  const int64_t src = f * BK + r * K, dst = g * K;
+  for (int k = threadIdx.x; k < a.K; k += kThreads) {
+    a.store_snap[dst + k] = __ldg(a.snap + src + k);
+    a.store_cost[dst + k] = __ldg(a.snap_cost + src + k);
+  }
+  const int64_t lsrc = (static_cast<int64_t>(r) * a.F + f) * a.V;
+  const int64_t ldst = (static_cast<int64_t>(i) * a.F + f) * a.V;
+  for (int k = threadIdx.x; k < a.V; k += kThreads)
+    a.packed[ldst + k] = __ldg(a.ll + lsrc + k);
 }
 
 }  // namespace
@@ -212,6 +335,79 @@ extern "C" int traceback_best_paths_i32(
          static_cast<int32_t*>(out),
          T, S, Si, B, K, A, C, N, E, Nclo, start, final_state, cap};
   traceback_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The served store's walk: one launch of n blocks on `stream`, block i
+// walking row idx[i][0] of the beam ([B, K]) over its first idx[i][1]
+// frames, in its pages idx[i][2...] of a pool of [NP, P, S, K] logs and
+// [NP, P, K] snapshots; the init log is one row ([Si, 1, K], [1, K]) every
+// row shares.  idx is i32[n, 2 + M] on the device, every page it names for
+// a row's frames inside the pool (the caller checks); out is
+// i32[n, kHead + cap].  The same shapes as traceback_best_paths_i32
+// otherwise.
+extern "C" int traceback_rows_i32(
+    const void* tok_state, const void* tok_cost, const void* prev,
+    const void* aid, const void* snap, const void* iaid, const void* isnap,
+    const void* em_offset, const void* em_dst, const void* em_arcid,
+    const void* clo_offset, const void* clo_path_off,
+    const void* clo_path_arcs, void* out, const void* idx, int n, int M,
+    int P, int S, int Si, int B, int K, int A, int C, int N, int E, int Nclo,
+    int start, int final_state, int cap, void* stream) {
+  if (n == 0) return 0;
+  if (n < 0 || M < 0 || P <= 0 || B <= 0 || K <= 0 || A <= 0 || S < 1 ||
+      S > 2 || Si < 0 || Si > 1 || ((S == 2 || Si == 1) && C <= 0) ||
+      cap < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a{static_cast<const int32_t*>(tok_state),
+         static_cast<const float*>(tok_cost),
+         static_cast<const int32_t*>(prev),
+         static_cast<const int32_t*>(aid),
+         static_cast<const int32_t*>(snap),
+         static_cast<const int32_t*>(iaid),
+         static_cast<const int32_t*>(isnap),
+         static_cast<const int32_t*>(em_offset),
+         static_cast<const int32_t*>(em_dst),
+         static_cast<const int32_t*>(em_arcid),
+         static_cast<const int32_t*>(clo_offset),
+         static_cast<const int64_t*>(clo_path_off),
+         static_cast<const int32_t*>(clo_path_arcs),
+         static_cast<int32_t*>(out),
+         0, S, Si, B, K, A, C, N, E, Nclo, start, final_state, cap};
+  traceback_rows_kernel<<<n, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      a, static_cast<const int32_t*>(idx), M, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The served store's write: one launch of n * F blocks on `stream`; every
+// pointer on the current device, contiguous, 32-bit words (StoreArgs);
+// idx is i32[n, 3 + M] on the device, every page it names for a row's
+// frames inside the pool (the caller checks).
+extern "C" int store_frames_i32(
+    const void* prev, const void* aid, const void* snap,
+    const void* snap_cost, void* store_prev, void* store_aid,
+    void* store_snap, void* store_cost, const void* ll, void* packed,
+    const void* idx, int n, int F, int S, int B, int K, int V, int P, int M,
+    void* stream) {
+  if (n == 0 || F == 0) return 0;
+  if (n < 0 || F < 0 || S < 1 || B <= 0 || K <= 0 || V < 0 || P <= 0 ||
+      M < 0 || static_cast<int64_t>(n) * F > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StoreArgs a{static_cast<const int32_t*>(prev),
+              static_cast<const int32_t*>(aid),
+              static_cast<const int32_t*>(snap),
+              static_cast<const int32_t*>(snap_cost),
+              static_cast<int32_t*>(store_prev),
+              static_cast<int32_t*>(store_aid),
+              static_cast<int32_t*>(store_snap),
+              static_cast<int32_t*>(store_cost),
+              static_cast<const int32_t*>(ll),
+              static_cast<int32_t*>(packed),
+              static_cast<const int32_t*>(idx),
+              F, S, B, K, V, P, M};
+  store_frames_kernel<<<n * F, kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

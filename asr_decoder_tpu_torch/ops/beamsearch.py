@@ -45,8 +45,8 @@ from asr_decoder_tpu_torch.fst.device_fst import DeviceFst
 from asr_decoder_tpu_torch.ops.fetch import fetch_records
 from asr_decoder_tpu_torch.ops.gather import (batched_table_gather,
                                               batched_table_gather_many)
-from asr_decoder_tpu_torch.ops.traceback import (best_paths, unpack,
-                                                 walk_tables)
+from asr_decoder_tpu_torch.ops.traceback import (WalkTables, best_paths,
+                                                 unpack, walk_tables)
 from asr_decoder_tpu_torch.utils.cuda_graphs import GraphRunner
 from asr_decoder_tpu_torch.utils.profiling import scope, span
 
@@ -713,6 +713,20 @@ def _select_engine(dev: DeviceFst, cfg: DecoderConfig
     return mode, eps_iters, relax
 
 
+def path_dict(arcs: np.ndarray, cost: float, reached_final: bool,
+              fst_arcs=None) -> dict:
+    """One row's traceback dict from its path, the original arc ids in
+    forward order: arc ids, cost and ``reached_final``, and with the source
+    StdFst ``fst_arcs`` its words and ilabels (the non-zero labels)."""
+    res = dict(arc_ids=arcs.tolist(), cost=cost, reached_final=reached_final)
+    if fst_arcs is not None:
+        ol = fst_arcs.arc_olabel[arcs]
+        il = fst_arcs.arc_ilabel[arcs]
+        res["words"] = ol[ol != 0].tolist()
+        res["ilabels"] = il[il != 0].tolist()
+    return res
+
+
 class TorchBeamSearch:
     """Batched beam-search decoder over a fixed graph on one device.
 
@@ -874,20 +888,25 @@ class TorchBeamSearch:
         """Per-utterance dicts with arc ids, words, ilabels, cost.
 
         ``logs``: one FrameLog or a list of per-chunk FrameLogs (the host
-        walks them in reverse without concatenation).  ``fst_arcs``: the
+        walks them in reverse without concatenation), or the paths a v3
+        walk on a device already copied to the host (``ops/traceback.py``'s
+        packed i32 rows: the arena's log store walked in a server round;
+        ``state`` and ``init_log`` are then not read).  ``fst_arcs``: the
         source StdFst for olabel/ilabel lookup; if None only arc ids and
         cost are returned.  The super-final token is preferred, else the
         best live one.
 
         Where the v3 logs lie on a CUDA device, the walk runs there
         (``ops/traceback.py``, chunks concatenated on the device first) and
-        only the paths come back; logs on the host (the server's and the
-        sessions' per-chunk copies) and the v2 engine's are walked on the
-        host.  Both give equal dicts.  The spans ``traceback/copy`` (logs
-        on the card: the walk and the copy of its output; on the host: the
-        state, logs and snapshots to the host) and ``traceback/walk`` (on
-        the card: the paths' reversal and label lookups; on the host: the
-        walk) time its two parts."""
+        only the paths come back; logs on the host (the v2, CLG and BigLM
+        arenas' per-chunk copies, host copies of any logs) are walked on
+        the host.  Both give equal dicts.  The spans ``traceback/copy``
+        (logs on the card: the walk and the copy of its output; on the
+        host: the state, logs and snapshots to the host) and
+        ``traceback/walk`` (walked paths: their reversal and label lookups;
+        on the host: the walk) time its two parts."""
+        if isinstance(logs, np.ndarray):
+            return self._path_dicts(logs, fst_arcs)
         chunks = logs if isinstance(logs, list) else [logs]
         if self.relax_impl == "topk" and chunks and all(
                 isinstance(c.prev_slot, torch.Tensor) and c.prev_slot.is_cuda
@@ -926,10 +945,7 @@ class TorchBeamSearch:
         memory, then per row the reversal and label lookups."""
         device = chunks[0].prev_slot.device
         with span("traceback/copy"):
-            tables = self._walk_tables.get(device)
-            if tables is None:
-                tables = self._walk_tables[device] = walk_tables(
-                    self.dev, self.A, self.C, device)
+            tables = self.walk_tables_on(device)
             prev, aid, snap = (
                 torch.cat(x) if len(x) > 1 else x[0]
                 for x in zip(*((c.prev_slot, c.arc_id, c.tok_state)
@@ -941,18 +957,24 @@ class TorchBeamSearch:
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             torch.cuda.current_stream(device).synchronize()
-        results = []
+        return self._path_dicts(host.numpy(), fst_arcs)
+
+    @staticmethod
+    def _path_dicts(paths: np.ndarray, fst_arcs) -> list[dict]:
+        """The dicts of a device walk's packed paths, on the host."""
         with span("traceback/walk"):
-            for arcs, cost, final in unpack(host.numpy()):
-                res = dict(arc_ids=arcs.tolist(), cost=cost,
-                           reached_final=final)
-                if fst_arcs is not None:
-                    ol = fst_arcs.arc_olabel[arcs]
-                    il = fst_arcs.arc_ilabel[arcs]
-                    res["words"] = ol[ol != 0].tolist()
-                    res["ilabels"] = il[il != 0].tolist()
-                results.append(res)
-        return results
+            return [path_dict(arcs, cost, final, fst_arcs)
+                    for arcs, cost, final in unpack(paths)]
+
+    def walk_tables_on(self, device) -> WalkTables:
+        """The graph tables the card walk reads, on ``device`` (uploaded
+        once a device)."""
+        device = torch.device(device)
+        tables = self._walk_tables.get(device)
+        if tables is None:
+            tables = self._walk_tables[device] = walk_tables(
+                self.dev, self.A, self.C, device)
+        return tables
 
     def _decode_stage_arcs(self, stage: int, a: int) -> list[int]:
         """v2: a logged per-stage arc id → original StdFst arc ids,

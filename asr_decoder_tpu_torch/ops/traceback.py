@@ -1,19 +1,24 @@
 """The v3 search's best-path traceback where its logs lie: one launch walks
-every row of a batch and returns only the paths.
+every row asked for and returns only the paths.
 
-``TorchBeamSearch.traceback`` calls this when the logs are on a CUDA device
-(the offline batches, whose ``[T, S, B, K]`` logs stay on the card); logs on
-the host (the server's and the session's per-channel copies, every CPU
-caller) keep the host walk, ``TorchBeamSearch._walk_v3``.  The result is a
-packed i32 ``[B, HEAD + cap]``: per row the path length (-1 where the logs
-do not hold a walkable path), the cost's f32 bits, ``reached_final``, then
-the original arc ids in backward order; words past the length are
-unspecified.
+Two callers keep v3 logs on a CUDA device.  ``TorchBeamSearch.traceback``
+walks an offline batch (its ``[T, S, B, K]`` logs) with ``best_paths``;
+the arena of ``serving/batcher.py`` keeps each channel's logs on the card
+in a pool of pages (``serving/logstore.py``: ``[NP, P, S, K]`` logs and
+``[NP, P, K]`` snapshots, a row's pages listed in a host page table
+``[B, M]``), written a tick at a time by ``store_frames``, and walks the
+channels of a server round with ``best_paths_rows``, each row over its own
+frame count.  Logs on the host (the v2, CLG and BigLM searches' per-channel
+copies, host logs of any caller) keep the host walk,
+``TorchBeamSearch._walk_v3``.  The result is a packed i32 ``[B, HEAD +
+cap]``: per row the path length (-1 where the logs do not hold a walkable
+path), the cost's f32 bits, ``reached_final``, then the original arc ids in
+backward order; words past the length are unspecified.
 
-On a CUDA tensor the wrapper launches the kernel of ``csrc/traceback.cu``;
-on a CPU tensor it runs the plain version, which computes the same function
-in PyTorch, vectorised over the rows.  It replaces no TPU kernel: the JAX
-package walks on the host (``TpuBeamSearch._traceback_v3``).
+On a CUDA tensor the wrappers launch the kernels of ``csrc/traceback.cu``;
+on a CPU tensor they run the plain versions, which compute the same
+functions in PyTorch.  They replace no TPU kernel: the JAX package walks on
+the host (``TpuBeamSearch._traceback_v3``).
 """
 
 from __future__ import annotations
@@ -30,8 +35,12 @@ from asr_decoder_tpu_torch.ops._build import load_library
 HEAD = 3                  # length, cost bits, reached_final
 LENGTH, COST, FINAL = range(HEAD)
 
-# kernel launches from this process (CUDA tensors only); callers reset it
+# kernel launches from this process (CUDA tensors only), of the offline
+# entry (``best_paths``), of the store's walk (``best_paths_rows``) and of
+# its write (``store_frames``); callers reset them
 launches = 0
+row_launches = 0
+store_launches = 0
 
 
 class WalkTables(NamedTuple):
@@ -77,6 +86,24 @@ def capacity(tables: WalkTables, T: int) -> int:
 def _kernel():
     fn = load_library("traceback").traceback_best_paths_i32
     fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _rows_kernel():
+    fn = load_library("traceback").traceback_rows_i32
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 15 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _store_kernel():
+    fn = load_library("traceback").store_frames_i32
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -149,6 +176,218 @@ def best_paths(tables: WalkTables, tok_state: torch.Tensor,
     return out
 
 
+def _upload(device, idx: np.ndarray) -> torch.Tensor:
+    """A host int array as i32 on ``device`` (a pinned copy on a card, so
+    the upload does not wait)."""
+    host = torch.from_numpy(np.ascontiguousarray(idx, np.int32))
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host
+
+
+def _pages_of(pages, P: int, NP: int, rows, ends) -> np.ndarray:
+    """The page lists ``pages[rows]`` (i64[n, M]) of a host page table
+    ``pages`` [B, M], once every page that frames ``[0, ends[i])`` of row
+    ``rows[i]`` lie in is checked to be one of the pool's ``NP``."""
+    pages = np.asarray(pages)
+    if pages.ndim != 2:
+        raise ValueError("the page table must be [B, M]")
+    B, M = pages.shape
+    if ((rows < 0) | (rows >= B)).any():
+        raise ValueError(f"rows outside the store's {B}")
+    need = -(-ends // P)
+    if ((ends < 0) | (need > M)).any():
+        raise ValueError(f"frames outside the page table's {M} pages of "
+                         f"{P}")
+    held = pages[rows].astype(np.int64)
+    used = np.arange(M) < need[:, None]
+    if (used & ((held < 0) | (held >= NP))).any():
+        raise ValueError(f"a row's frames lie past the pages it holds, or "
+                         f"in a page outside the pool's {NP}")
+    return held
+
+
+def _check_pool(prev, aid, snap) -> tuple[int, int, int, int]:
+    """The pool's (NP, P, S, K) from its leaves."""
+    if prev.dim() != 4 or aid.shape != prev.shape:
+        raise ValueError(f"need prev and aid [NP, P, S, K], got "
+                         f"{tuple(prev.shape)} and {tuple(aid.shape)}")
+    NP, P, S, K = prev.shape
+    if snap.shape != (NP, P, K):
+        raise ValueError(f"need snap [{NP}, {P}, {K}], got "
+                         f"{tuple(snap.shape)}")
+    return NP, P, S, K
+
+
+def _dense(leaf: torch.Tensor, held: np.ndarray, T: int) -> torch.Tensor:
+    """Frames ``[0, T)`` of each row's pages ``held`` [n, M] as dense
+    ``[T, n, ...]`` (a frame past a row's pages reads page 0)."""
+    P = leaf.shape[1]
+    t = np.arange(T)
+    g = held[:, t // P].clip(min=0) * P + t % P
+    return leaf.view(-1, *leaf.shape[2:])[torch.from_numpy(g.T)
+                                          .to(leaf.device)]
+
+
+def best_paths_rows(tables: WalkTables, tok_state: torch.Tensor,
+                    tok_cost: torch.Tensor, prev: torch.Tensor,
+                    aid: torch.Tensor, snap: torch.Tensor,
+                    iprev: torch.Tensor, iaid: torch.Tensor,
+                    isnap: torch.Tensor, pages, rows, lengths
+                    ) -> torch.Tensor:
+    """The best paths of rows ``rows`` (host ints) of a paged log store, row
+    ``rows[i]`` over its first ``lengths[i]`` frames: the beam
+    ``tok_state`` i32[B, K], ``tok_cost`` f32[B, K]; the pool's ``prev``
+    and ``aid`` i32[NP, P, S, K] and snapshots ``snap`` i32[NP, P, K]; the
+    init log's one row, which every row shares: ``iprev``, ``iaid``
+    i32[Si, 1, K], ``isnap`` i32[1, K]; all on the tables' device; the host
+    page table ``pages`` [B, M] (row b's frame t in page ``pages[b, t //
+    P]`` at ``t % P``).  Returns i32[len(rows), HEAD +
+    capacity(max(lengths))] in the order of ``rows`` (module doc)."""
+    NP, P, S, K = _check_pool(prev, aid, snap)
+    Si, B = iprev.shape[0], len(tok_state)
+    if iprev.shape[1:] != (1, K) or isnap.shape != (1, K):
+        raise ValueError("the init log must be one row: [Si, 1, K], [1, K]")
+    # shapes, stages, dtypes and devices as best_paths checks them, over
+    # none of the pool's frames
+    _check(tables, tok_state, tok_cost,
+           *(t[:0].view(0, S, 1, K).expand(0, S, B, K) for t in (prev, aid)),
+           snap[:0].view(0, 1, K).expand(0, B, K), iprev.expand(Si, B, K),
+           iaid.expand(Si, B, K), isnap.expand(B, K))
+    rows = np.asarray(rows, np.int64).reshape(-1)
+    lengths = np.asarray(lengths, np.int64).reshape(-1)
+    if rows.shape != lengths.shape:
+        raise ValueError("one length a row")
+    held = _pages_of(pages, P, NP, rows, lengths)
+    n = len(rows)
+    Tmax = int(lengths.max()) if n else 0
+    device = tables.em_offset.device
+    if device.type == "cpu":
+        r = torch.from_numpy(rows)
+        return best_paths_plain(
+            tables, tok_state[r], tok_cost[r],
+            _dense(prev, held, Tmax).permute(0, 2, 1, 3),
+            _dense(aid, held, Tmax).permute(0, 2, 1, 3),
+            _dense(snap, held, Tmax), iprev.expand(Si, n, K),
+            iaid.expand(Si, n, K), isnap.expand(n, K),
+            lengths=torch.from_numpy(lengths))
+    if device.type != "cuda":
+        raise ValueError(f"no traceback kernel for device {device}")
+    cap = capacity(tables, Tmax)
+    if HEAD + cap >= 2**31:
+        raise ValueError(f"traceback paths out of range: T={Tmax} "
+                         f"cap={cap}")
+    out = torch.empty((n, HEAD + cap), dtype=torch.int32, device=device)
+    if not n:
+        return out
+    idx = _upload(device, np.concatenate([rows[:, None], lengths[:, None],
+                                          held], axis=1))
+    ins = [t.contiguous() for t in (tok_state, tok_cost, prev, aid, snap,
+                                    iaid, isnap)]
+    global row_launches
+    with torch.cuda.device(device):
+        err = _rows_kernel()(
+            *(t.data_ptr() for t in (*ins, *tables[:6], out, idx)),
+            n, held.shape[1], P, S, Si, B, K, tables.A, tables.C,
+            tables.em_offset.numel(), tables.em_dst.numel(),
+            tables.clo_path_off.numel() - 1, tables.start,
+            tables.final_state, cap,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"traceback rows kernel launch failed: CUDA "
+                           f"error {err}")
+    row_launches += 1
+    return out
+
+
+def _store_check(pool, log, loglikes, pages, rows, offs, valid):
+    """The pool's and the tick's leaves agree, and every row's frames lie
+    in pages it holds; returns (host rows, offs, valid, their page
+    lists)."""
+    if len(pool) != 4 or len(log) != 4:
+        raise ValueError("need the four v3 log leaves (prev, aid, snapshot "
+                         "states and costs)")
+    NP, P, S, K = _check_pool(*pool[:3])
+    F, B = log[0].shape[0], log[0].shape[2]
+    for d, s in zip(pool, log):
+        if d.shape[:2] != (NP, P) or s.shape[0] != F \
+                or d.shape[2:] != s.shape[1:-2] + s.shape[-1:] \
+                or s.shape[-2] != B or d.dtype != s.dtype \
+                or d.device != s.device or d.element_size() != 4:
+            raise ValueError("pool and log leaves disagree")
+    if loglikes.shape[:2] != (B, F) or loglikes.dtype != torch.float32 \
+            or loglikes.device != pool[0].device:
+        raise ValueError(f"loglikes must be f32[{B}, {F}, V] on the "
+                         f"pool's device")
+    rows, offs, valid = (np.asarray(x, np.int64).reshape(-1)
+                         for x in (rows, offs, valid))
+    if not rows.shape == offs.shape == valid.shape:
+        raise ValueError("one offset and one count a row")
+    if ((rows < 0) | (rows >= B) | (offs < 0) | (valid < 0)
+            | (valid > F)).any():
+        raise ValueError(f"rows outside the tick's {B}, or counts outside "
+                         f"its {F} frames")
+    return rows, offs, valid, _pages_of(pages, P, NP, rows, offs + valid)
+
+
+def store_frames(pool, log, loglikes: torch.Tensor, pages, rows, offs,
+                 valid) -> torch.Tensor:
+    """Write a tick's log frames into a paged log store and pack its rows'
+    loglikes: for each i, frames ``[0, valid[i])`` of row ``rows[i]`` of
+    ``log`` (the v3 leaves: prev and aid i32[F, S, B, K], snapshot states
+    i32 and costs f32 [F, B, K]) into ``pool`` (the same leaves in pages:
+    [NP, P, S, K] and [NP, P, K]) at the row's frames ``offs[i]`` on, as
+    the host page table ``pages`` [B, M] places them, in place.  ``rows``,
+    ``offs`` and ``valid`` are host ints.  Returns the packed loglikes
+    f32[n, F, V]: row i holds ``loglikes[rows[i], :valid[i]]`` (later
+    frames unspecified)."""
+    rows, offs, valid, held = _store_check(pool, log, loglikes, pages, rows,
+                                           offs, valid)
+    device = pool[0].device
+    if device.type == "cpu":
+        return store_frames_plain(pool, log, loglikes, pages, rows, offs,
+                                  valid)
+    if device.type != "cuda":
+        raise ValueError(f"no store kernel for device {device}")
+    n = len(rows)
+    (F, S, B, K), V, P = log[0].shape, loglikes.shape[2], pool[0].shape[1]
+    packed = torch.empty((n, F, V), dtype=torch.float32, device=device)
+    if not n or not F:
+        return packed
+    idx = _upload(device, np.concatenate(
+        [rows[:, None], offs[:, None], valid[:, None], held], axis=1))
+    src = [t.contiguous() for t in (*log, loglikes)]
+    if not all(t.is_contiguous() for t in pool):
+        raise ValueError("the pool's leaves must be contiguous")
+    global store_launches
+    with torch.cuda.device(device):
+        err = _store_kernel()(
+            *(t.data_ptr() for t in (*src[:4], *pool, src[4], packed, idx)),
+            n, F, S, B, K, V, P, held.shape[1],
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"store kernel launch failed: CUDA error {err}")
+    store_launches += 1
+    return packed
+
+
+def store_frames_plain(pool, log, loglikes, pages, rows, offs, valid
+                       ) -> torch.Tensor:
+    """The store kernel's plain PyTorch version (CPU path and reference):
+    one indexed copy a row and leaf.  Packed frames past a row's count are
+    0."""
+    n, (F, V), P = len(rows), loglikes.shape[1:], pool[0].shape[1]
+    packed = loglikes.new_zeros((n, F, V))
+    for i, (r, o, v) in enumerate(zip(rows, offs, valid)):
+        t = np.arange(o, o + v)
+        g = torch.from_numpy(np.asarray(pages)[r, t // P].astype(np.int64)
+                             * P + t % P).to(pool[0].device)
+        for d, s in zip(pool, log):
+            d.view(-1, *d.shape[2:])[g] = s[:v, ..., r, :]
+        packed[i, :v] = loglikes[r, :v]
+    return packed
+
+
 def unpack(paths: np.ndarray):
     """Each row of a host copy of ``best_paths``' output as (original arc
     ids i32[n] in forward order, cost, reached_final); a row the walk
@@ -180,11 +419,13 @@ def _final_slots(final_state: int, tok_state, tok_cost):
 
 
 def best_paths_plain(tables: WalkTables, tok_state, tok_cost, prev, aid,
-                     snap, iprev, iaid, isnap) -> torch.Tensor:
-    """The kernel's plain PyTorch version (CPU path and reference): the
+                     snap, iprev, iaid, isnap, lengths=None) -> torch.Tensor:
+    """The kernels' plain PyTorch version (CPU path and reference): the
     slot chain walked for all rows at once, frame by frame, then every
     frame's arc lookups at once and the paths laid out with
-    ``repeat_interleave``.  Words past a row's length are 0."""
+    ``repeat_interleave``.  ``lengths`` (i64[B], default T each): row b
+    walks its first ``lengths[b]`` frames, as the store's walk does.
+    Words past a row's length are 0."""
     T, S, B, K = prev.shape
     Si = iprev.shape[0]
     tb = tables
@@ -192,6 +433,8 @@ def best_paths_plain(tables: WalkTables, tok_state, tok_cost, prev, aid,
     A, C = tb.A, max(tb.C, 1)
     rows = torch.arange(B, device=device)
     bad = torch.zeros(B, dtype=torch.bool, device=device)
+    lengths = (torch.full((B,), T, device=device) if lengths is None
+               else lengths.to(device))
 
     def take(table, idx, used):
         """``table[idx]`` where ``used``; an index outside the table there
@@ -207,16 +450,17 @@ def best_paths_plain(tables: WalkTables, tok_state, tok_cost, prev, aid,
     fi1s = torch.full((T, B), -1, dtype=torch.long, device=device)
     fis = torch.empty((T, B), dtype=torch.long, device=device)
     for t in range(T - 1, -1, -1):
+        live = lengths > t             # rows whose walk has reached frame t
         if S == 2:
-            fi1s[t] = aid[t, 1, rows, slot]
-            slot = prev[t, 1, rows, slot].long()
-            bad |= (slot < 0) | (slot >= K)
-            slot = slot.clamp(0, K - 1)
+            fi1s[t] = torch.where(live, aid[t, 1, rows, slot], -1)
+            nxt = prev[t, 1, rows, slot].long()
+            bad |= live & ((nxt < 0) | (nxt >= K))
+            slot = torch.where(live, nxt.clamp(0, K - 1), slot)
         fi = aid[t, 0, rows, slot].long()
-        fis[t] = fi
-        slot = torch.where(fi >= 0, fi // A, prev[t, 0, rows, slot].long())
-        bad |= (slot < 0) | (slot >= K) | ((fi1s[t] >= 0) & (fi < 0))
-        slot = slot.clamp(0, K - 1)
+        fis[t] = torch.where(live, fi, -1)
+        nxt = torch.where(fi >= 0, fi // A, prev[t, 0, rows, slot].long())
+        bad |= live & ((nxt < 0) | (nxt >= K) | ((fi1s[t] >= 0) & (fi < 0)))
+        slot = torch.where(live, nxt.clamp(0, K - 1), slot)
     init_entry = torch.full((B,), -1, dtype=torch.long, device=device)
     if Si:
         fi1 = iaid[0, rows, slot].long()

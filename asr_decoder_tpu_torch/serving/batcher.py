@@ -17,10 +17,26 @@ Threads: every method except the ``*_from(snapshot)`` builders runs on one
 device thread.  Arena tensors are updated in place, so a snapshot copies
 what it captures to the host; result threads touch no CUDA tensor.
 
-The one-tick deferred log copy of the JAX arena is kept (tick t's logs
-stream to the host while tick t+1 computes), with its slot-reuse fault
-repaired: ``release`` delivers the pending logs first, so a slot acquired
-again never inherits its previous channel's last logs.
+Where the logs live follows the search's engine.  The v3 engine
+(``TorchBeamSearch`` with ``relax_impl`` topk) keeps each block's logs on
+the block's device, in a paged store (``serving/logstore.py``: each
+channel row holds pages for the frames it has decoded, so the store's
+size is the sum of the live channels' lengths).  ``push`` reserves a
+channel's pages for its queued frames, before they are queued: past the
+store's limit it raises ``LogStoreFull`` and closes the channel for
+input, and the other channels go on.  A tick writes its advanced rows'
+frames there in one launch (``ops/traceback.py:store_frames``), and best
+paths are walked on the device, one launch for every channel asked at
+once (``walk_paths``, ``ops/traceback.py:best_paths_rows``), so a snapshot
+carries its channel's path and no logs; a lattice or n-best copies that
+channel's logs out of the store (``snapshot(..., logs=True)``).  The v2,
+CLG and BigLM searches keep per-channel host logs and the host walk.
+
+Each tick's advanced rows' loglikes (and the host-log engines' logs) are
+copied to the host one tick late, as in the JAX arena (tick t's copy runs
+while tick t+1 computes), with its slot-reuse fault repaired: ``release``
+delivers the pending copy first, so a slot acquired again never inherits
+its previous channel's last frames.
 
 With ``use_energy_vad`` each channel keeps its own energy VAD and trailing
 silence: ``endpoint_detected(cid)`` applies the session's endpoint rule, and
@@ -34,8 +50,8 @@ and feature chunk live on the block's device, searched by a replica of the
 search there (``parallel/decode.py:shard_search``) through a replica of the
 AM (the AM is replicated, as in JAX).  A tick runs the blocks one after
 another on the one device thread; each block writes its own replica's
-tensors, and logs and snapshots are read back in channel order.  Without a
-mesh the arena is one block on ``info.device``.
+tensors and log store, and logs, paths and snapshots are read back in
+channel order.  Without a mesh the arena is one block on ``info.device``.
 
 Beam and logs are handled generically over the three searches (hclg, clg,
 biglm-hclg), by the JAX rule: the beam is a NamedTuple of [B, ...] lanes;
@@ -53,9 +69,13 @@ import torch
 
 from asr_decoder_tpu_torch.frontend.pipeline import fbank_many
 from asr_decoder_tpu_torch.models.nnet import require_streaming
+from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
+from asr_decoder_tpu_torch.ops.traceback import HEAD, LENGTH
+from asr_decoder_tpu_torch.serving.logstore import LogStore, LogStoreFull
 from asr_decoder_tpu_torch.serving.session import (FeatureBuffer,
                                                    OnlineDecoderInfo,
-                                                   best_path, host_log,
+                                                   best_path, empty_path,
+                                                   host_log,
                                                    lattice_from_logs,
                                                    merge_logs,
                                                    nbest_from_lattice,
@@ -96,7 +116,7 @@ class _Channel:
     drained: bool = False          # eos fully scored
     chunk_logs: list = field(default_factory=list)     # host logs
     loglikes: list[np.ndarray] = field(default_factory=list)
-    frames_decoded: int = 0
+    frames_decoded: int = 0        # stepped (the store's frames of its row)
     vad: object = None             # EnergyVadStream (endpointing) or None
     trailing_sil: int = 0
 
@@ -113,16 +133,23 @@ class _Block:
     beam: tuple                    # the search's beam lanes, [hi - lo, ...]
     beam_init_row: tuple           # lanes [1, ...]: the initial beam
     am_state: list
+    store: LogStore | None = None  # v3: the block's log store
+    init_log: tuple | None = None  # v3: the init log's row on ``device``
 
 
 @dataclass
 class ChannelSnapshot:
     """Host copy of one channel's result state; safe to read from any
-    thread while the arena keeps stepping."""
+    thread while the arena keeps stepping.  ``path``: the channel's best
+    path as the device walk left it (a row of ``ops/traceback.py``'s
+    packed output, i32[HEAD + length]) where the arena keeps a log store;
+    ``chunk_logs`` then holds the channel's logs only when the snapshot was
+    asked for them."""
     beam: tuple                    # the search's beam lanes, numpy [1, K]
     chunk_logs: list
     loglikes: list
     frames_decoded: int
+    path: np.ndarray | None = None
 
 
 class BatchedStreamingDecoder:
@@ -171,10 +198,20 @@ class BatchedStreamingDecoder:
                 [l.init_state(r.stop - r.start, dev) for l in layers[dev]]))
         self._init_log = type(init_log)(*(_channel_rows(a, 0)
                                           for a in host_log(init_log)))
+        # the v3 engine keeps its logs on the device (module doc)
+        self._stored = (isinstance(info.search, TorchBeamSearch)
+                        and info.search.relax_impl == "topk")
+        if self._stored:
+            S, K = info.search.num_stages, info.search.beam_width
+            for blk in self._blocks:
+                blk.init_log = type(init_log)(*(
+                    torch.from_numpy(a).to(blk.device)
+                    for a in self._init_log))
+                blk.store = LogStore(blk.hi - blk.lo, S, K, blk.device)
         self._feat_dim = info.am_layers[0].input_dim if info.am_layers else 0
-        # the previous tick's logs, on their way to the host:
-        # (advanced cids, valid frames, [(host log, host loglikes)] a
-        # block, ready events)
+        # the previous tick's copies, on their way to the host:
+        # (advanced cids, valid frames, [(host log or None, host loglikes,
+        # row -> loglikes row or None)] a block, ready events)
         self._pending: tuple | None = None
 
     def _block(self, cid: int) -> tuple[_Block, int]:
@@ -198,20 +235,22 @@ class BatchedStreamingDecoder:
         return pending
 
     def _deliver(self, pending: tuple | None) -> None:
-        """Slice a tick's host logs out to the channels it advanced."""
+        """Slice a tick's host copies out to the channels it advanced: their
+        loglikes and, where the search keeps host logs, their logs."""
         if pending is None:
             return
         advanced, valid, host, _ = pending
-        host = [([t.numpy() for t in log], ll.numpy()) for log, ll in host]
+        host = [(None if log is None else [t.numpy() for t in log],
+                 ll.numpy(), at) for log, ll, at in host]
         for cid in advanced:
             ch = self._channels[cid]
             v = int(valid[cid])
             i, row = divmod(cid, self._rows)
-            log, ll = host[i]
-            ch.chunk_logs.append(type(self._init_log)(
-                *(_channel_rows(a, row, v) for a in log)))
-            ch.loglikes.append(ll[row, :v].copy())
-            ch.frames_decoded += v
+            log, ll, at = host[i]
+            if log is not None:
+                ch.chunk_logs.append(type(self._init_log)(
+                    *(_channel_rows(a, row, v) for a in log)))
+            ch.loglikes.append(ll[row if at is None else at[row], :v].copy())
 
     # -- channel lifecycle -------------------------------------------------
     @torch.inference_mode()
@@ -246,6 +285,9 @@ class BatchedStreamingDecoder:
         self._flush_logs()
         self._channels[cid] = None
         self._free.append(cid)
+        blk, row = self._block(cid)
+        if blk.store is not None:
+            blk.store.clear(row)
 
     @torch.inference_mode()
     def init_decoding(self, cid: int) -> None:
@@ -262,6 +304,11 @@ class BatchedStreamingDecoder:
         ch.chunk_logs = []
         ch.loglikes = []
         ch.frames_decoded = 0
+        blk, row = self._block(cid)
+        if blk.store is not None:
+            # the frames still queued start the new search at page 0
+            blk.store.clear(row)
+            blk.store.reserve(row, ch.pending_frames)
 
     def endpoint_detected(self, cid: int) -> bool:
         """The session's endpoint rule over channel ``cid`` (ref
@@ -297,7 +344,8 @@ class BatchedStreamingDecoder:
              fbank: np.ndarray | None = None) -> None:
         """Channel ``cid``'s next chunk of PCM; ``fbank``: its fbank frames
         as ``fbank_many`` computed them, in place of the channel's own
-        fbank of ``pcm``."""
+        fbank of ``pcm``.  Raises ``LogStoreFull`` where the log store
+        cannot hold the channel's frames (module doc)."""
         ch = self._open(cid)
         info = self.info
         pcm = _pcm(pcm)
@@ -314,6 +362,16 @@ class BatchedStreamingDecoder:
             ch.skip_phase = (ch.skip_phase + spliced.shape[0]) % (skip + 1)
             spliced = spliced[sel]
         if spliced.shape[0]:
+            blk, row = self._block(cid)
+            if blk.store is not None:
+                try:
+                    blk.store.reserve(row, ch.frames_decoded
+                                      + ch.pending_frames
+                                      + spliced.shape[0])
+                except LogStoreFull:
+                    # its frames are lost: the channel takes no more input
+                    ch.eos = ch.drained = True
+                    raise
             ch.pending.append(spliced)
             ch.pending_frames += spliced.shape[0]
         if eos:
@@ -342,6 +400,7 @@ class BatchedStreamingDecoder:
         with profiling.span("tick/pack"):
             feats = np.zeros((self.B, C, self._feat_dim), np.float32)
             valid = np.zeros(self.B, np.int32)
+            offs = np.zeros(self.B, np.int64)   # frames before this tick
             advanced: list[int] = []
             for cid in range(self.B):
                 if not self.ready(cid):
@@ -357,6 +416,8 @@ class BatchedStreamingDecoder:
                         [take, np.repeat(take[-1:], C - v, axis=0)], axis=0)
                 feats[cid] = take
                 valid[cid] = v
+                offs[cid] = ch.frames_decoded
+                ch.frames_decoded += v
                 advanced.append(cid)
                 if ch.eos and ch.pending_frames == 0:
                     ch.drained = True
@@ -376,8 +437,21 @@ class BatchedStreamingDecoder:
                                  for k in o}
                                 for n, o in zip(new_am, blk.am_state)]
                 blk.beam, log = blk.search.advance(blk.beam, loglikes, mask)
-                host.append(([t.to("cpu", non_blocking=True) for t in log],
-                             loglikes.to("cpu", non_blocking=True)))
+                if blk.store is None:
+                    host.append(([t.to("cpu", non_blocking=True)
+                                  for t in log],
+                                 loglikes.to("cpu", non_blocking=True), None))
+                else:
+                    # the advanced rows' frames into the store, their
+                    # loglikes packed: the only copy to the host
+                    mine = np.flatnonzero(valid[rows])
+                    packed = blk.store.write(log, loglikes, mine,
+                                             offs[rows][mine],
+                                             valid[rows][mine])
+                    at = np.zeros(blk.hi - blk.lo, np.int64)
+                    at[mine] = np.arange(len(mine))
+                    host.append((None, packed.to("cpu", non_blocking=True),
+                                 at))
                 if blk.device.type == "cuda":
                     ready.append(torch.cuda.Event())
                     ready[-1].record(torch.cuda.current_stream(blk.device))
@@ -399,24 +473,72 @@ class BatchedStreamingDecoder:
     # -- results -------------------------------------------------------------
     #
     # ``snapshot(cid)`` runs on the device thread (it flushes and copies the
-    # channel's beam row to the host); the ``*_from(snap)`` builders —
+    # channel's beam row to the host, and where the arena keeps a log store
+    # walks its best path there); the ``*_from(snap)`` builders —
     # traceback, word alignment, lattice, n-best — read only that host copy
     # and may run on other threads while the arena keeps stepping.  The
     # ``cid`` forms take the snapshot first, so they run on the device
     # thread.
-    def snapshot(self, cid: int, beam: tuple | None = None
+    def snapshot(self, cid: int, beam: tuple | None = None,
+                 path: np.ndarray | None = None, logs: bool = False
                  ) -> ChannelSnapshot:
-        """``beam``: the channel's beam rows as ``copy_beams`` copied them
-        since the last ``step``, in place of a copy of its own."""
+        """``beam`` and ``path``: the channel's beam rows as ``copy_beams``
+        copied them and its path as ``walk_paths`` walked it since the last
+        ``step``, in place of a copy and a walk of its own.  ``logs``: copy
+        the channel's logs out of the log store too (a lattice or n-best
+        needs them; host logs are always there)."""
         self._flush_logs()
         ch = self._channels[cid]
+        blk, row = self._block(cid)
         if beam is None:
-            blk, row = self._block(cid)
             beam = type(blk.beam)(*(to_host(a[row:row + 1])
                                     for a in blk.beam))
-        return ChannelSnapshot(beam=beam, chunk_logs=list(ch.chunk_logs),
+        chunk_logs = list(ch.chunk_logs)
+        if blk.store is not None:
+            if path is None:
+                path, = self.walk_paths([cid])
+            if logs and ch.frames_decoded:
+                chunk_logs = [blk.store.frames(row, ch.frames_decoded)]
+        return ChannelSnapshot(beam=beam, chunk_logs=chunk_logs,
                                loglikes=list(ch.loglikes),
-                               frames_decoded=ch.frames_decoded)
+                               frames_decoded=ch.frames_decoded, path=path)
+
+    @torch.inference_mode()
+    def walk_paths(self, cids: list[int]) -> list[np.ndarray | None]:
+        """The best paths so far of channels ``cids``, for their
+        ``snapshot(cid, beam, path)``: per block one launch of the walk over
+        its log store (``ops/traceback.py:best_paths_rows``, each channel
+        over its own frames), then one copy of the paths to the host.  Each
+        is its row of the walk's packed output (a copy, cut to its
+        length); None for each where the search keeps host logs."""
+        if not self._stored:
+            return [None] * len(cids)
+        by_block: dict[int, list[int]] = {}
+        for cid in cids:
+            by_block.setdefault(cid // self._rows, []).append(cid)
+        host, ready = {}, []
+        for i, mine in by_block.items():
+            blk = self._blocks[i]
+            out = blk.store.walk(
+                self.info.search.walk_tables_on(blk.device), blk.beam,
+                blk.init_log, [c - blk.lo for c in mine],
+                [self._channels[c].frames_decoded for c in mine])
+            if blk.device.type == "cuda":
+                host[i] = torch.empty(out.shape, dtype=out.dtype,
+                                      pin_memory=True)
+                host[i].copy_(out, non_blocking=True)
+                ready.append(torch.cuda.Event())
+                ready[-1].record(torch.cuda.current_stream(blk.device))
+            else:
+                host[i] = out
+        for event in ready:
+            event.synchronize()
+        paths = {}
+        for i, mine in by_block.items():
+            rows = host[i].numpy()
+            for cid, row in zip(mine, rows):
+                paths[cid] = row[:HEAD + max(int(row[LENGTH]), 0)].copy()
+        return [paths[cid] for cid in cids]
 
     @torch.inference_mode()
     def copy_beams(self, cids: list[int]) -> list[tuple]:
@@ -452,8 +574,18 @@ class BatchedStreamingDecoder:
         return out
 
     def get_best_path_from(self, snap: ChannelSnapshot) -> dict:
-        return best_path(self.info, snap.beam, self._init_log,
-                         snap.chunk_logs)
+        """The channel's best path so far: from the path the device walk
+        left in the snapshot (the span ``path/card``: label lookups only),
+        else walked over its host logs (``path/host``)."""
+        if snap.path is None:
+            with profiling.span("path/host"):
+                return best_path(self.info, snap.beam, self._init_log,
+                                 snap.chunk_logs)
+        with profiling.span("path/card"):
+            if not snap.frames_decoded:
+                return empty_path()
+            return self.info.search.traceback(None, None, snap.path[None],
+                                              self.info.fst)[0]
 
     def get_best_path(self, cid: int) -> dict:
         return self.get_best_path_from(self.snapshot(cid))
@@ -477,8 +609,14 @@ class BatchedStreamingDecoder:
 
     def get_lattice_from(self, snap: ChannelSnapshot,
                          determinize: bool = True):
+        """The lattice of a snapshot that holds the channel's logs
+        (``snapshot(cid, logs=True)`` where the arena keeps a log store),
+        or None for a channel with no frames."""
         logs = merge_logs(snap.chunk_logs)
         if logs is None:
+            if snap.frames_decoded:
+                raise ValueError("the snapshot holds no logs: take it with "
+                                 "snapshot(cid, logs=True)")
             return None
         lls = np.concatenate(snap.loglikes, axis=0)[None]
         return lattice_from_logs(self.info, self._init_log, logs, lls,
@@ -487,11 +625,12 @@ class BatchedStreamingDecoder:
     def get_lattice(self, cid: int, determinize: bool = True):
         """The channel's lattice (determinized unless asked not to), or
         None for a channel with no frames."""
-        return self.get_lattice_from(self.snapshot(cid), determinize)
+        return self.get_lattice_from(self.snapshot(cid, logs=True),
+                                     determinize)
 
     def get_nbest_from(self, snap: ChannelSnapshot, n: int) -> list[dict]:
         return nbest_from_lattice(
             self.info, self.get_lattice_from(snap, determinize=True), n)
 
     def get_nbest(self, cid: int, n: int) -> list[dict]:
-        return self.get_nbest_from(self.snapshot(cid), n)
+        return self.get_nbest_from(self.snapshot(cid, logs=True), n)

@@ -15,10 +15,12 @@ every push queued when the device thread comes free in one round there:
 one fbank over all the round's frames, the arena's ticks while any of its
 channels has a ready chunk (each tick one batched AM+search dispatch over
 every such channel), then every push's endpoint decision and snapshot, the
-snapshots copied to the host together.  A round never waits for more
-pushes.  Every arena call runs on that one-thread executor (the arena is
-single-writer); result building (traceback, lattice, n-best) runs on a
-result pool over host snapshots.
+snapshots' beams copied to the host together and their best paths walked
+together (one launch on the card where the arena keeps its logs there).
+A round never waits for more pushes.  Every arena call runs on that
+one-thread executor (the arena is single-writer); result building (the
+path's labels, alignment, lattice, n-best) runs on a result pool over host
+snapshots.
 
 With ``use_energy_vad``, a reply whose push ends in an endpoint (trailing
 silence, ``BatchedStreamingDecoder.endpoint_detected``) is a ``MIDDLEEND``
@@ -50,6 +52,7 @@ from asr_decoder_tpu_torch.utils.config import ConfigOptions, flag
 from asr_decoder_tpu_torch.utils.logging import get_logger
 from asr_decoder_tpu_torch.serving.batcher import (BatchedStreamingDecoder,
                                                    ChannelSnapshot)
+from asr_decoder_tpu_torch.serving.logstore import LogStoreFull
 from asr_decoder_tpu_torch.serving.session import (OnlineDecoderInfo,
                                                    word_alignment)
 
@@ -88,13 +91,16 @@ class SocketConfig:
 @dataclass
 class _Push:
     """A packet's PCM, queued for the device thread's next round;
-    ``future`` gets (endpoint detected, snapshot)."""
+    ``future`` gets (endpoint detected, snapshot).  ``logs``: a final
+    reply to it asks for a lattice or an n-best, so its snapshot, if it
+    ends the stream or a segment, carries the channel's logs."""
     cid: int
     samples: np.ndarray
     eos: bool
     req: object
     submitted: float               # perf_counter at the queueing
     future: asyncio.Future
+    logs: bool = False
 
 
 @dataclass
@@ -178,13 +184,13 @@ class AsrServer:
             await self._server.serve_forever()
 
     # -- the batched device loop (ref DynamicBatcher compute cycle) --------
-    def _submit(self, cid: int, samples: np.ndarray, eos: bool, req
-                ) -> asyncio.Future:
+    def _submit(self, cid: int, samples: np.ndarray, eos: bool, req,
+                logs: bool = False) -> asyncio.Future:
         """Queue a push for the next round; the future gets its (endpoint
         detected, snapshot)."""
         fut = asyncio.get_running_loop().create_future()
         self._queue.append(_Push(cid, samples, eos, req, time.perf_counter(),
-                                 fut))
+                                 fut, logs))
         self._work.set()
         return fut
 
@@ -224,16 +230,28 @@ class AsrServer:
         self.rounds += 1
         self.pushes_served += len(pushes)
 
-    def _serve(self, pushes: list[_Push]) -> list[tuple]:
+    def _serve(self, pushes: list[_Push]) -> list:
         """Push every chunk, tick while any of their channels has a ready
-        chunk, then (endpoint detected, snapshot) for each push."""
+        chunk, then (endpoint detected, snapshot) for each push: the beams
+        copied and the best paths walked for all of them at once (on the
+        device where the arena keeps a log store).  A push the arena's log
+        store cannot hold gets its ``LogStoreFull`` in place of an
+        answer."""
         b = self._batcher
         with profiling.span("device/push"):
             fbanks = b.fbank_many([(p.cid, p.samples, p.eos)
                                    for p in pushes])
+        refused = {}
         for p, fbank in zip(pushes, fbanks):
             with profiling.span("device/push", p.req):
-                b.push(p.cid, p.samples, p.eos, fbank=fbank)
+                try:
+                    b.push(p.cid, p.samples, p.eos, fbank=fbank)
+                except LogStoreFull as exc:
+                    # this stream alone is refused; the round goes on
+                    LOG.warning("channel %d refused: %s", p.cid, exc)
+                    refused[id(p)] = exc
+        everyone, pushes = pushes, [p for p in pushes
+                                    if id(p) not in refused]
         ready = []
         for p in pushes:
             with profiling.span("device/ready", p.req):
@@ -247,16 +265,20 @@ class AsrServer:
             with profiling.span("device/ready"):
                 ready = [cid for cid in advanced if b.ready(cid)]
         with profiling.span("device/snapshot"):
-            beams = b.copy_beams([p.cid for p in pushes])
+            cids = [p.cid for p in pushes]
+            beams = b.copy_beams(cids)
+            paths = b.walk_paths(cids)
         answers = []
-        for p, beam in zip(pushes, beams):
+        for p, beam, path in zip(pushes, beams, paths):
             endpoint = False
             if not p.eos:
                 with profiling.span("device/endpoint_detected", p.req):
                     endpoint = b.endpoint_detected(p.cid)
             with profiling.span("device/snapshot", p.req):
-                answers.append((endpoint, b.snapshot(p.cid, beam)))
-        return answers
+                answers.append((endpoint, b.snapshot(
+                    p.cid, beam, path, logs=p.logs and (p.eos or endpoint))))
+        served = iter(answers)
+        return [refused.get(id(p)) or next(served) for p in everyone]
 
     # -- per-connection task loop (ref: v2-asr-task.h:57-327) --------------
     def _tune_socket(self, writer: asyncio.StreamWriter) -> None:
@@ -325,8 +347,12 @@ class AsrServer:
                     # pushed, ticked and snapshotted in a device round;
                     # the reply is built off the snapshot
                     with profiling.span("pump"):
-                        endpoint, snap = await self._submit(
-                            cid, samples, bool(pkg.end_flag), req)
+                        try:
+                            endpoint, snap = await self._submit(
+                                cid, samples, bool(pkg.end_flag), req,
+                                logs=pkg.nbest > 1 or bool(pkg.lattice))
+                        except LogStoreFull:
+                            break      # the stream is refused: hang up
                     reply, seg_words, seg_align = await self._run_result(
                         self._results, snap, pkg,
                         bool(pkg.end_flag) or endpoint, prefix_words,
@@ -427,10 +453,14 @@ class AsrServer:
         return reply, seg_words, seg_align
 
 
-def _resolve(pushes: list[_Push], answers: list[tuple]) -> None:
+def _resolve(pushes: list[_Push], answers: list) -> None:
+    """Each push's answer, or the exception that refused it."""
     for p, answer in zip(pushes, answers):
         if not p.future.done():
-            p.future.set_result(answer)
+            if isinstance(answer, Exception):
+                p.future.set_exception(answer)
+            else:
+                p.future.set_result(answer)
 
 
 def _fail(pushes: list[_Push], exc: Exception) -> None:

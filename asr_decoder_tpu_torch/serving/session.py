@@ -264,12 +264,17 @@ class OnlineDecoderInfo:
         return loglikes, am_state, mask
 
 
+def empty_path() -> dict:
+    """The best path of an utterance with no frames decoded."""
+    return dict(arc_ids=[], cost=0.0, words=[], ilabels=[],
+                reached_final=False)
+
+
 def best_path(info: OnlineDecoderInfo, beam, init_log, chunk_logs) -> dict:
     """Best path of one utterance from host logs: the CLG traceback takes
     no graph (and gives no arc ids), the others read words off ``fst``."""
     if not chunk_logs:
-        return dict(arc_ids=[], cost=0.0, words=[], ilabels=[],
-                    reached_final=False)
+        return empty_path()
     if info.config.graph_type == "clg":
         return info.search.traceback(beam, init_log, chunk_logs)[0]
     return info.search.traceback(beam, init_log, chunk_logs, info.fst)[0]

@@ -36,11 +36,15 @@ The names, each written at its call site:
   ``acquire``, ``release``, ``init_decoding``), and ``round`` (a round of
   queued pushes, recorded once it has ended: the parent of none; the work
   its pushes share is ``device/push``, ``device/ready`` and
-  ``device/snapshot`` with no ``req``, its ticks ``device/step``); on a
-  result thread ``results/queue`` and ``results/build``, inside it
+  ``device/snapshot`` (the beams' copy and the paths' walk) with no
+  ``req``, its ticks ``device/step``); on a result thread
+  ``results/queue`` and ``results/build``, inside it
   ``result/traceback`` and ``result/align``.
-* ``serving/batcher.py`` ``step``: ``tick/pack``, ``tick/launch``,
-  ``tick/wait`` (the previous tick's log copy), ``tick/deliver``.
+* ``serving/batcher.py`` ``step``: ``tick/pack``, ``tick/launch`` (with
+  the log store's write), ``tick/wait`` (the previous tick's copy to the
+  host), ``tick/deliver``; ``get_best_path_from``: ``path/card`` (the
+  snapshot's path, walked on the device in its round) or ``path/host``
+  (a walk of host logs), one a reply.
 * ``ops/beamsearch.py`` ``traceback``: ``traceback/copy`` and
   ``traceback/walk``.  With the logs on a card: the walk kernel
   (``ops/traceback.py``) and the copy of its paths to the host, then the

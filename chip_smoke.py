@@ -232,6 +232,9 @@ FETCH_CASES = [(200_001, 32, FETCH_SHAPES), (2_500_000, 32, FETCH_SHAPES),
 TRACEBACK_CASES = [(256, 512, 267, 14.0, 16, "hclg200k.offline"),
                    (32, 4096, 264, 12.0, 200, "tlg2m.offline")]
 TRACEBACK_STATES = 50_000
+# the served arena's walk and store write (B, K, frames a row, rows a
+# round, rows a tick, frames a tick): hclg200k.flood's shapes
+SERVED_CASE = (256, 512, 700, 124, 21, 32)
 CHASE_STEPS, CHASE_HBM, CHASE_L2 = 20_000, 1 << 26, 1 << 20
 CHASE_FLUSH, CHASE_REPS = 256 << 20, 5
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, published peak
@@ -581,7 +584,122 @@ def traceback_cases(dev, floor: float) -> dict:
         out[cell] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=bms,
                          bound_by="latency", library_ms=None)
         del search, state, init_log, logs, args, ll
+    served_cases(dev, dfst, gen, hbm, l2)
     return out["hclg200k.offline"]
+
+
+def events_ms(fn, calls: int = 20) -> float:
+    """Device-stream ms per eager call of ``fn`` (CUDA events around
+    ``calls`` back-to-back calls, after one warm call)."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    fn()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+@torch.inference_mode()
+def served_cases(dev, dfst, gen, hbm: float, l2: float) -> None:
+    """The served arena's two entries of ``csrc/traceback.cu`` at
+    ``hclg200k.flood``'s shapes (``SERVED_CASE``): the round's walk of
+    ``rows`` rows of a 256-row store, each over its own frames (log-normal
+    lengths, median 200 frames, as the flood's utterances), bit-exact
+    against the plain version on the card, timed beside its latency-chain
+    bound (S·T + 9 dependent reads of the longest row, at the L2's and at
+    device memory's round trip: the store is past the L2); the tick's
+    store write of ``adv`` rows, bit-exact and timed beside its bytes at
+    HBM bandwidth (each word read once and written once)."""
+    from asr_decoder_tpu_torch.decoder.config import DecoderConfig
+    from asr_decoder_tpu_torch.ops import traceback as tb
+    from asr_decoder_tpu_torch.ops.beamsearch import TorchBeamSearch
+    from asr_decoder_tpu_torch.serving.logstore import PAGE_FRAMES
+    B, K, T, rows_n, adv, F = SERVED_CASE
+    search = TorchBeamSearch(
+        dfst, np.arange(NUM_PDFS, dtype=np.int32),
+        DecoderConfig(beam=14.0, beam_width=K, max_active=K, min_active=16,
+                      arc_lanes=ARC_LANES, eps_mode="closure",
+                      relax_impl="topk"), device=dev)
+    ll = 3 * torch.randn((B, T, NUM_PDFS), generator=gen, device=dev)
+    state, init_log, logs = search.decode(ll)
+    rng = np.random.default_rng(23)
+    rows = rng.choice(B, rows_n, replace=False)
+    lengths = np.clip(rng.lognormal(np.log(200), 0.5, rows_n), 50,
+                      T).astype(np.int64)
+    lengths[0] = T
+    tables = tb.walk_tables(dfst, search.A, search.C, dev)
+    # the logs in the store's pages (serving/logstore.py), each row's pages
+    # drawn at random from the pool
+    P = PAGE_FRAMES
+    M = -(-T // P)
+    pages = rng.permutation(B * M).reshape(B, M).astype(np.int32)
+    t = np.arange(T)
+    g = torch.from_numpy(pages[:, t // P].astype(np.int64) * P
+                         + t % P).to(dev)                       # [B, T]
+    pool = []
+    for a in logs:
+        leaf = a.new_empty((B * M, P, *a.shape[1:-2], K))
+        flat = leaf.view(-1, *leaf.shape[2:])
+        flat[g.t()] = a.movedim(-2, 1) if a.dim() == 4 else a
+        pool.append(leaf)
+    args = (tables, state.tok_state, state.tok_cost, *pool[:3],
+            init_log.prev_slot[:, :1], init_log.arc_id[:, :1],
+            init_log.tok_state[:1], pages)
+    got = tb.best_paths_rows(*args, rows, lengths).cpu()
+    r = torch.from_numpy(rows).to(dev)
+    n, Tm = len(rows), int(lengths.max())
+    t0 = time.perf_counter()
+    want = tb.best_paths_plain(
+        tables, state.tok_state[r], state.tok_cost[r], logs.prev_slot[:Tm,
+                                                                      :, r],
+        logs.arc_id[:Tm, :, r], logs.tok_state[:Tm, r],
+        *(a.expand(a.shape[0], n, K) for a in args[6:8]),
+        args[8].expand(n, K), lengths=torch.from_numpy(lengths)).cpu()
+    pms = (time.perf_counter() - t0) * 1e3
+    k = want[:, tb.LENGTH].clamp(min=0)
+    check(bool((k > 0).all()) and got.shape == want.shape and all(
+        torch.equal(g[:tb.HEAD + m], w[:tb.HEAD + m])
+        for g, w, m in zip(got, want, k.tolist())),
+        f"traceback rows [hclg200k.flood] {n} of {B} rows: kernel == plain")
+    ms = events_ms(lambda: tb.best_paths_rows(*args, rows, lengths))
+    S = logs.prev_slot.shape[1]
+    chain = S * Tm + 9
+    print(f"traceback rows [hclg200k.flood] B={B} K={K} T={T} S={S}, "
+          f"pages of {P} frames: "
+          f"{n} rows, lengths {int(lengths.min())}-{Tm} (median "
+          f"{int(np.median(lengths))}): kernel == plain bit for bit; "
+          f"{ms:.4f} ms a launch (device stream, the rows' page lists' "
+          f"upload included), latency-chain bound {chain * l2 * 1e-3:.4f} ms at "
+          f"the L2's {l2:.4f} us ({chain * l2 * 1e-3 / ms:.1%}), "
+          f"{chain * hbm * 1e-3:.4f} ms at device memory's {hbm:.4f} us "
+          f"({chain * hbm * 1e-3 / ms:.1%}); plain {pms:.1f} ms (wall)")
+    tick = tuple(a[:F] for a in logs)
+    lls = torch.randn((B, F, NUM_PDFS), generator=gen, device=dev)
+    mine = rng.choice(B, adv, replace=False)
+    offs = rng.integers(0, T - F, adv)
+    valid = np.full(adv, F)
+    valid[0] = F // 2
+    want_pool = tuple(a.to("cpu", copy=True) for a in pool)
+    packed = tb.store_frames(pool, tick, lls, pages, mine, offs, valid)
+    want_packed = tb.store_frames_plain(
+        want_pool, tuple(a.to("cpu", copy=True) for a in tick), lls.cpu(),
+        pages, mine, offs, valid)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(pool, want_pool))
+          and all(torch.equal(packed[i, :v].cpu(), want_packed[i, :v])
+                  for i, v in enumerate(valid)),
+          "store write [hclg200k.flood]: kernel == plain")
+    ms = events_ms(lambda: tb.store_frames(pool, tick, lls, pages, mine,
+                                           offs, valid))
+    words = int(valid.sum()) * ((2 * S + 2) * K + NUM_PDFS)
+    bms = 2 * 4 * words / HBM_BYTES_PER_S * 1e3
+    print(f"store write [hclg200k.flood] {adv} rows x {F} frames into "
+          f"pages of {P} frames, K={K} S={S} V={NUM_PDFS}: kernel == plain "
+          f"bit for bit; {ms:.4f} ms a launch (device stream, the rows' "
+          f"page lists' upload included), bound {bms:.4f} ms ({2 * 4 * words / 1e6:.1f} MB at "
+          f"HBM bandwidth; {bms / ms:.1%})")
+    del search, state, init_log, logs, args, pool, want_pool, ll
 
 
 def phase_kernels(dev) -> dict:
@@ -1082,12 +1200,21 @@ def serve_check(info, utts: int, label: str,
             await server.stop()
 
     gather.launches = fetch.launches = traceback.launches = 0
+    traceback.row_launches = traceback.store_launches = 0
     t0 = time.perf_counter()
     replies, server = asyncio.run(serve())
     wall = time.perf_counter() - t0
     launches = {"gather": gather.launches, "fetch": fetch.launches}
-    check(traceback.launches == 0, f"{label}: the served path walks its "
-          f"host logs ({traceback.launches} traceback kernel launches)")
+    # the v3 search keeps its logs on the card and walks each round's
+    # paths there; the other searches walk host logs
+    stored = server._batcher._stored
+    check(traceback.launches == 0 and (traceback.row_launches > 0) == stored
+          and (traceback.store_launches > 0) == stored,
+          f"{label}: the served path writes and walks "
+          f"{'its card log store' if stored else 'its host logs'} "
+          f"({traceback.store_launches} store write launches, "
+          f"{traceback.row_launches} store walk launches, "
+          f"{traceback.launches} offline traceback launches)")
 
     # reference: the same waves, chunks and arena width, in process
     eng = BatchedStreamingDecoder(info, utts)
@@ -2607,7 +2734,8 @@ def multi_nbest(info, eng, cids) -> None:
                           "native", "python")}
     states = []
     for cid in cids[:NATIVE_UTTS]:
-        lat = eng.get_lattice_from(eng.snapshot(cid), determinize=True)
+        lat = eng.get_lattice_from(eng.snapshot(cid, logs=True),
+                                   determinize=True)
         data, sec = timed(lat.to_bytes)
         ms["to_bytes"].append(1e3 * sec)
         got, sec = timed(lambda: native_nbest.nshortest_bytes(data, NBEST_N))

@@ -289,7 +289,7 @@ def test_server_calls_the_arena_on_its_device_thread(vad_infos):
 
     replies, arena = asyncio.run(run())
     writers = {"acquire", "fbank_many", "push", "step", "ready",
-               "endpoint_detected", "copy_beams", "snapshot",
+               "endpoint_detected", "copy_beams", "walk_paths", "snapshot",
                "init_decoding", "release"}
     readers = {"get_best_path_from", "get_nbest_from", "get_lattice_from"}
     called = {name for name, _, _ in arena.calls}

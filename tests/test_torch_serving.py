@@ -245,6 +245,94 @@ def test_server_answers_concurrent_clients(infos):
         sum(len(w) for w in waves) / 16000)
 
 
+def test_final_reply_carries_its_channels_nbest(infos):
+    """A client asking for the 3-best at every chunk: each partial reply
+    carries the best path alone, and the final the n-best of the channel's
+    lattice, whose logs the round copied out for that push only; its texts
+    equal the port's batcher's over the same PCM."""
+    _, pinfo = infos
+    pcm = make_wave(24, n=11000).astype(np.int16)
+    chunks = [pcm[lo:lo + 3200] for lo in range(0, len(pcm), 3200)]
+    eng = BatchedStreamingDecoder(pinfo, num_channels=1)
+    cid = eng.acquire()
+    for i, c in enumerate(chunks):
+        eng.push(cid, c.astype(np.float32), eos=i == len(chunks) - 1)
+        eng.drain()
+    want = [r["text"] for r in eng.get_nbest(cid, 3)]
+
+    async def run():
+        server = AsrServer(pinfo, SocketConfig(port=0, num_channels=1))
+        host, port = await server.start()
+        try:
+            c = AsyncAsrClient(host, port)
+            await c.connect()
+            try:
+                return [await c.send_chunk(x, end=i == len(chunks) - 1,
+                                           nbest=3)
+                        for i, x in enumerate(chunks)]
+            finally:
+                await c.close()
+        finally:
+            await server.stop()
+
+    replies = asyncio.run(run())
+    assert [r.end_flag for r in replies] == \
+        [EndFlag.NOEND] * (len(chunks) - 1) + [EndFlag.END]
+    assert all(len(r.results) == 1 for r in replies[:-1])
+    assert len(want) > 1
+    assert [r.text for r in replies[-1].results] == want
+
+
+def test_a_stream_past_the_log_store_is_refused_alone(infos, monkeypatch):
+    """A server whose log store holds 6 pages of 32 frames: client A holds
+    a channel mid-stream while client B streams until its push needs a
+    page past the limit; the server hangs up on B alone, returns B's
+    pages, and A's stream goes on to the text the port's batcher gives
+    over the same PCM."""
+    from asr_decoder_tpu_torch.serving import logstore
+    _, pinfo = infos
+    K, S = pinfo.search.beam_width, pinfo.search.num_stages
+    monkeypatch.setattr(logstore, "CPU_BYTES", 6 * 32 * (2 * S + 2) * K * 4)
+    pcm = make_wave(25, n=9000).astype(np.int16)
+    chunks = [pcm[lo:lo + 3000] for lo in range(0, len(pcm), 3000)]
+    eng = BatchedStreamingDecoder(pinfo, num_channels=1)
+    cid = eng.acquire()
+    for i, c in enumerate(chunks):
+        eng.push(cid, c.astype(np.float32), eos=i == len(chunks) - 1)
+        eng.drain()
+    want = eng.get_best_path(cid)["words"]
+    long_pcm = make_wave(26, n=160000).astype(np.int16)
+
+    async def run():
+        server = AsrServer(pinfo, SocketConfig(port=0, num_channels=2))
+        host, port = await server.start()
+        try:
+            a, b = AsyncAsrClient(host, port), AsyncAsrClient(host, port)
+            await a.connect()
+            await b.connect()
+            try:
+                first = await a.send_chunk(chunks[0])
+                with pytest.raises((ConnectionError,
+                                    asyncio.IncompleteReadError)):
+                    for lo in range(0, len(long_pcm), 4000):
+                        await b.send_chunk(long_pcm[lo:lo + 4000])
+                rest = [await a.send_chunk(x, end=i == len(chunks) - 2)
+                        for i, x in enumerate(chunks[1:])]
+                store = server._batcher._blocks[0].store
+                return first, rest, store
+            finally:
+                await a.close()
+                await b.close()
+        finally:
+            await server.stop()
+
+    first, rest, store = asyncio.run(run())
+    assert first.end_flag == EndFlag.NOEND
+    assert rest[-1].end_flag == EndFlag.END
+    assert rest[-1].results[0].words == want and want
+    assert not store.held.any()
+
+
 def test_unported_configs_raise(infos):
     """The energy VAD, once refused, now builds and endpoints as JAX's
     session does (speech, then silence past ``endpoint_sil_frames``); every

@@ -228,6 +228,144 @@ def test_bad_shapes_raise():
                       il.arc_id, il.tok_state)
 
 
+def _paged(logs, P=4, seed=0):
+    """Dense logs [T, S, B, K] (and [T, B, K] snapshots) as a paged store:
+    each row's frames in pages of ``P`` drawn at random from a pool with
+    spare pages, and the page table [B, M] (-1 past a row's pages)."""
+    T, _, B, _ = logs.prev_slot.shape
+    M = -(-T // P)
+    rng = np.random.default_rng([seed, 3])
+    NP = B * M + 3
+    pages = rng.permutation(NP)[:B * M].reshape(B, M).astype(np.int32)
+    pool = []
+    for a in logs:
+        leaf = a.new_zeros((NP, P, *a.shape[1:-2], a.shape[-1]))
+        flat = leaf.view(-1, *leaf.shape[2:])
+        t = np.arange(T)
+        for b in range(B):
+            g = torch.from_numpy(pages[b, t // P].astype(np.int64) * P
+                                 + t % P).to(a.device)
+            flat[g] = a[:, ..., b, :]
+        pool.append(leaf)
+    return BS.FrameLog(*pool), np.concatenate(
+        [pages, np.full((B, 2), -1, np.int32)], axis=1)
+
+
+def _rows_args(search, state, init_log, logs, P=4):
+    """``best_paths_rows``' arguments over one decode's logs as a paged
+    store: the decode's beam, its logs in pages, the init log's first row,
+    the page table."""
+    tables = TB.walk_tables(search.dev, search.A, search.C, search.device)
+    pool, pages = _paged(logs, P)
+    return (tables, state.tok_state, state.tok_cost, pool.prev_slot,
+            pool.arc_id, pool.tok_state, init_log.prev_slot[:, :1],
+            init_log.arc_id[:, :1], init_log.tok_state[:1], pages)
+
+
+def _same_paths(got, want):
+    """Two packed outputs (rows in the same order, any widths): headers
+    equal, and arcs equal up to each row's length."""
+    assert torch.equal(got[:, :TB.HEAD], want[:, :TB.HEAD])
+    for g, w in zip(got, want):
+        n = TB.HEAD + max(int(w[TB.LENGTH]), 0)
+        assert torch.equal(g[:n], w[:n])
+
+
+@pytest.mark.parametrize("kind,seed", CASES)
+def test_rows_walk_equals_the_full_walk(kind, seed):
+    """A row subset in another order, each row over its own frames (its
+    mask's length: the frames after it keep the row's tokens), equals
+    those rows of the walk over every frame; one row walks no frame."""
+    _, search = _search(kind, seed)
+    B, T = 6, 24
+    mask = _mask(B, T, seed)
+    state, init_log, logs = search.decode(_loglikes(seed, B, T), mask)
+    # the last masked-out frame of each row ends where its frames end
+    lengths = np.where(mask.any(axis=1),
+                       T - np.argmax(mask[:, ::-1], axis=1), 0)
+    rows = [4, 0, 2, 5, 3]
+    want = _plain(search, state, init_log, logs)[rows]
+    got = TB.best_paths_rows(*_rows_args(search, state, init_log, logs),
+                             rows, lengths[rows])
+    assert got.shape == (len(rows), TB.HEAD + TB.capacity(
+        _rows_args(search, state, init_log, logs)[0], lengths[rows].max()))
+    _same_paths(got, want)
+    short = TB.best_paths_rows(*_rows_args(search, state, init_log, logs),
+                               [1, 1], [0, 3])
+    none = _plain(search, state, init_log, BS.FrameLog(
+        *(t[:0] for t in logs[:2]), *(t[:0] for t in logs[2:])))
+    _same_paths(short[:1], none[1:2])
+
+
+def test_rows_walk_refuses_rows_and_lengths_outside_the_store():
+    _, search = _search("closure", 1)
+    st, il, lg = search.decode(_loglikes(1, 2, 5))
+    args = _rows_args(search, st, il, lg, P=2)
+    for rows, lengths in (([2], [1]), ([-1], [1]), ([0], [9]), ([0], [-1]),
+                          ([0, 1], [1])):
+        with pytest.raises(ValueError):
+            TB.best_paths_rows(*args, rows, lengths)
+    torn = args[-1].copy()
+    torn[1, 1] = -1                      # row 1's frames 2-3 in no page
+    TB.best_paths_rows(*args[:-1], torn, [1], [2])
+    with pytest.raises(ValueError, match="pages"):
+        TB.best_paths_rows(*args[:-1], torn, [1], [3])
+    torn[1, 1] = len(args[3])            # a page outside the pool
+    with pytest.raises(ValueError, match="pool"):
+        TB.best_paths_rows(*args[:-1], torn, [1], [3])
+    with pytest.raises(ValueError):
+        TB.best_paths_rows(*args[:6], il.prev_slot, il.arc_id, il.tok_state,
+                           args[-1], [0], [1])
+
+
+def _store_case(seed, F=8, S=2, B=5, K=16, V=7, NP=9, P=4, M=4):
+    """A tick's logs and loglikes, a paged pool holding earlier frames, the
+    page table, and the rows the tick advanced: their offsets and valid
+    frames (one row's frames crossing a page, one starting a page)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def ints(*shape):
+        return torch.randint(-3, 1000, shape, generator=g, dtype=torch.int32)
+    log = (ints(F, S, B, K), ints(F, S, B, K), ints(F, B, K),
+           torch.randn((F, B, K), generator=g))
+    pool = (ints(NP, P, S, K), ints(NP, P, S, K), ints(NP, P, K),
+            torch.randn((NP, P, K), generator=g))
+    ll = torch.randn((B, F, V), generator=g)
+    pages = np.full((B, M), -1, np.int32)
+    perm = np.random.default_rng(seed).permutation(NP)
+    rows, offs, valid = [3, 0, 4], [0, 3, 4], [F, 2, 3]
+    used = 0
+    for r, o, v in zip(rows, offs, valid):
+        n = -(-(o + v) // P)
+        pages[r, :n] = perm[used:used + n]
+        used += n
+    return pool, log, ll, pages, rows, offs, valid
+
+
+def test_store_write_puts_each_rows_frames_at_its_offset():
+    pool, log, ll, pages, rows, offs, valid = _store_case(0)
+    P = pool[0].shape[1]
+    before = tuple(t.clone() for t in pool)
+    packed = TB.store_frames(pool, log, ll, pages, rows, offs, valid)
+    assert packed.shape == (3, ll.shape[1], ll.shape[2])
+    touched = [torch.zeros(t.shape[:2], dtype=torch.bool) for t in pool]
+    for i, (r, o, v) in enumerate(zip(rows, offs, valid)):
+        for f in range(v):
+            page, j = pages[r, (o + f) // P], (o + f) % P
+            for d, s, m in zip(pool, log, touched):
+                assert torch.equal(d[page, j], s[f, ..., r, :])
+                m[page, j] = True
+        assert torch.equal(packed[i, :v], ll[r, :v])
+    for d, b, m in zip(pool, before, touched):
+        assert torch.equal(d[~m], b[~m])           # nothing else written
+    with pytest.raises(ValueError):                # past the row's pages
+        TB.store_frames(pool, log, ll, pages, [0], [7], [2])
+    with pytest.raises(ValueError):                # a row outside it
+        TB.store_frames(pool, log, ll, pages, [5], [0], [1])
+    with pytest.raises(ValueError):                # more than the tick
+        TB.store_frames(pool, log, ll, pages, [3], [0], [9])
+
+
 # ---- on the card ----------------------------------------------------------
 
 def _kernel_vs_plain(search, state, init_log, logs):
@@ -302,3 +440,67 @@ def test_traceback_on_card_equals_host_copies(cuda, kind):
     assert search.traceback(host(st), host(il), [host(c) for c in chunks],
                             fst) == want
     assert TB.launches == before + 2
+
+
+def _rows_kernel_vs_plain(search, state, init_log, logs, rows, lengths):
+    args = _rows_args(search, state, init_log, logs, P=32)
+    before = TB.row_launches, TB.launches
+    got = TB.best_paths_rows(*args, rows, lengths).cpu()
+    assert (TB.row_launches, TB.launches) == (before[0] + 1, before[1])
+    host = [t.cpu() for t in args[1:-1]]
+    cpu = TB.walk_tables(search.dev, search.A, search.C, "cpu")
+    want = TB.best_paths_rows(cpu, *host, args[-1], rows, lengths)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    _same_paths(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,seed", CASES)
+def test_rows_kernel_matches_plain_small(cuda, kind, seed):
+    """Ragged per-row lengths (one row of none) over a row subset."""
+    _, search = _search(kind, seed, device=cuda)
+    B, T = 6, 24
+    out = search.decode(_loglikes(seed, B, T), _mask(B, T, seed))
+    args = _rows_args(search, *out, P=4)
+    rows, lengths = [5, 0, 3, 2], [24, 7, 0, 13]
+    got = TB.best_paths_rows(*args, rows, lengths).cpu()
+    cpu = TB.walk_tables(search.dev, search.A, search.C, "cpu")
+    want = TB.best_paths_rows(cpu, *(t.cpu() for t in args[1:-1]),
+                              args[-1], rows, lengths)
+    _same_paths(got, want)
+
+
+@pytest.mark.cuda
+def test_rows_kernel_matches_plain_at_the_flood_shapes(cuda):
+    """The served cell's store: 256 rows, K 512, two stages, ~700 frames
+    in pages of 32; a round's ~124 rows, each over its own length."""
+    B, K, T = 256, 512, 700
+    _, search = _search("closure", 3, device=cuda, K=K, num_states=50_000,
+                        beam=14.0, min_active=16)
+    out = search.decode(_loglikes(3, B, T), _mask(B, T, 3))
+    rng = np.random.default_rng(9)
+    rows = rng.choice(B, 124, replace=False)
+    lengths = rng.integers(0, T + 1, len(rows))
+    paths = _rows_kernel_vs_plain(search, *out, rows, lengths)
+    assert (paths[:, TB.LENGTH] > 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_store_kernel_matches_plain(cuda):
+    """The store's write on the card and on the CPU: every word of the
+    pool and each row's packed frames; one launch counted."""
+    for seed, shape in ((1, {}), (2, dict(F=32, B=256, K=512, V=2048,
+                                          NP=12, P=32, M=3))):
+        pool, log, ll, pages, rows, offs, valid = _store_case(seed, **shape)
+        dev = [tuple(t.to(cuda) for t in x) for x in (pool, log)]
+        before = TB.store_launches
+        got = TB.store_frames(*dev, ll.to(cuda), pages, rows, offs, valid)
+        assert TB.store_launches == before + 1
+        want = TB.store_frames(pool, log, ll, pages, rows, offs, valid)
+        torch.cuda.synchronize()
+        for g, w in zip(dev[0], pool):
+            assert torch.equal(g.cpu(), w)
+        for i, v in enumerate(valid):
+            assert torch.equal(got[i, :v].cpu(), want[i, :v])
